@@ -7,7 +7,11 @@ Phases, each of which raises (exit code != 0) on failure:
      from learning_to_adapt_torch/csrc with nvcc for sm_90a, in parallel;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes, with the tolerance printed, and time kernel, plain
-     version and (for the MLP) one library call with CUDA events;
+     version and (for the MLP) one library call with CUDA events, the host
+     queued ahead so the times are the card's. The MLP kernel runs on
+     weights packed once (pack_weights, timed on its own), with L2 warm
+     and flushed; the library call's device time also comes from a
+     torch.profiler window;
   3. drive the main path: GrBAL adaptive-MPC sampling on HalfCheetah
      (cripple task) at the full width of run_scripts/run_grbal.py — 5 envs,
      500 candidates x horizon 10, a (512,512,512) ReLU meta-MLP, adaptation
@@ -15,12 +19,13 @@ Phases, each of which raises (exit code != 0) on failure:
      random-action call, Normalizer.fit on its paths, one policy call
      (episode 1, so cripple tasks are drawn); paths of 100 steps, so
      adaptation is active from step 18. The launch counters are set to 0
-     before the policy call and must show 10 fused-MLP launches per env
-     step and 1 Jacobi launch per physics step;
+     before the policy call and must show 10 fused-MLP launches and 1
+     weight pack per env step and 1 Jacobi launch per physics step;
   4. profile one more policy sampling call of 30 steps with torch.profiler:
      wall and device time per step, the device's busy share, host time of
-     each labelled part of a step (rollout.adapt / .plan / .env_step), and
-     the device time per launch of both kernels;
+     each labelled part of a step (rollout.adapt / .pack / .plan /
+     .env_step), the device time per launch of both kernels and the pack's
+     device time per step;
   5. watch one more policy sampling call for the host waiting on the card
      (the profiler's CUDA runtime sync calls and CUDA's sync-debug mode) and
      fail if anything waits once a step or more;
@@ -66,19 +71,51 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup=5, iters=50):
+def queue_ahead():
+    """Hold the card for ~0.1 s so that the host enqueues the timed calls
+    before the card starts on them: event times are then the card's, not
+    the host's dispatch (a wrapper's host time can exceed its kernel's)."""
+    import torch
+    torch.cuda._sleep(200_000_000)
+
+
+def cuda_ms(fn, warmup=5, iters=50, before=None):
+    """Mean time per call of fn on the card, by CUDA events around each
+    call. `before`, when given, runs ahead of each call, outside the timed
+    span (the L2 flush)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    queue_ahead()
+    for start, end in marks:
+        if before is not None:
+            before()
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(s.elapsed_time(e) for s, e in marks) / iters
+
+
+def device_ms(fn, iters=20):
+    """Sum of the card's activity (kernels, copies) per call of fn, from a
+    torch.profiler window: gaps between the kernels are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, 'is_user_annotation', False))
+    return us / iters / 1e3
 
 
 def bound_ms(n_bytes, flops, peak_flops):
@@ -120,39 +157,60 @@ def check_fused_mlp(dev):
     errs = []
     for label, w_set, b_set in (('per-group', ws, bs),
                                 ('stride-0', shared_w, shared_b)):
-        out = fm.fused_mlp_cuda(x, w_set, b_set, 'relu')
+        packed = fm.pack_weights(w_set, b_set)
         ref = fm.fused_mlp_plain(x, w_set, b_set, 'relu')
+        out = fm.fused_mlp_cuda(x, packed, None, 'relu')
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         errs.append(err)
-        log(f'fused_mlp {label} {tuple(x.shape)} -> {tuple(out.shape)}: '
-            f'max_abs_err {err:.3e} (tolerance {MLP_TOL}, '
-            f'max|ref| {float(ref.abs().max()):.3f})')
+        log(f'fused_mlp {label}, packed weights {tuple(x.shape)} -> '
+            f'{tuple(out.shape)}: max_abs_err {err:.3e} (tolerance '
+            f'{MLP_TOL}, max|ref| {float(ref.abs().max()):.3f})')
         torch.testing.assert_close(out, ref, **MLP_TOL)
+
+    packed = fm.pack_weights(ws, bs)
+    w16 = [w.to(torch.bfloat16) for w in ws]       # cast once, not timed
+    b16 = [b.to(torch.bfloat16)[:, None, :] for b in bs]
 
     def library():
         h = x.to(torch.bfloat16)
-        for i, (w, b) in enumerate(zip(ws, bs)):
-            h = torch.bmm(h, w.to(torch.bfloat16)) + b.to(torch.bfloat16)[
-                :, None, :]
-            if i < len(ws) - 1:
+        for i, (w, b) in enumerate(zip(w16, b16)):
+            h = torch.baddbmm(b, h, w)
+            if i < len(w16) - 1:
                 h = torch.relu(h)
         return h.float()
 
-    ms = cuda_ms(lambda: fm.fused_mlp_cuda(x, ws, bs, 'relu'))
+    def kernel():
+        return fm.fused_mlp_cuda(x, packed, None, 'relu')
+
+    flush = torch.empty(16 * 2 ** 20, device=dev)  # 64 MB > the 50 MB L2
+    ms = cuda_ms(kernel)
+    ms_cold = cuda_ms(kernel, iters=20, before=flush.zero_)
     plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, ws, bs, 'relu'))
     library_ms = cuda_ms(library)
+    library_device_ms = device_ms(library)
+    pack_ms = cuda_ms(lambda: fm.pack_weights(ws, bs))
     macs = sum(k * n for k, n in zip(MLP_DIMS[:-1], MLP_DIMS[1:]))
-    n_bytes = 4 * (x.numel() + g * r * MLP_DIMS[-1] +
-                   sum(w.numel() + b.numel() for w, b in zip(ws, bs)))
+    n_bytes = (4 * (x.numel() + g * r * MLP_DIMS[-1] +
+                    sum(b.numel() for b in bs)) +
+               2 * sum(w.numel() for w in ws))     # weights read as bf16
     b_ms, b_by = bound_ms(n_bytes, 2.0 * g * r * macs, BF16_FLOP_PER_S)
-    log(f'fused_mlp per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-        f'bf16 bmm chain {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+    # the pack reads the f32 weights once and writes the bf16 tile stream
+    pack_bound, _ = bound_ms(4 * sum(w.numel() for w in ws) +
+                             2 * packed.w.numel(), 0, BF16_FLOP_PER_S)
+    log(f'fused_mlp per launch: kernel {ms:.4f} ms; L2 flushed '
+        f'{ms_cold:.4f} ms; plain {plain_ms:.4f} ms; bf16 baddbmm chain '
+        f'{library_ms:.4f} ms (device {library_device_ms:.4f} ms); bound '
+        f'{b_ms:.4f} ms ({b_by})')
+    log(f'pack_weights per call: {pack_ms:.4f} ms, bound {pack_bound:.4f} ms '
+        f'(bytes: {4 * sum(w.numel() for w in ws) / 1e6:.1f} MB of f32 read, '
+        f'{2 * packed.w.numel() / 1e6:.1f} MB of bf16 tiles written)')
     return dict(name='fused_mlp', route='cuda',
                 source='learning_to_adapt_torch/csrc/fused_mlp.cu',
                 replaces='learning_to_adapt_tpu/ops/fused_mlp.py:102',
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                ms_cold=ms_cold, library_device_ms=library_device_ms)
 
 
 def contact_systems(dev):
@@ -236,7 +294,8 @@ def check_jacobi(dev):
                 source='learning_to_adapt_torch/csrc/jacobi.cu',
                 replaces='learning_to_adapt_tpu/ops/pallas_jacobi.py:73',
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_cold=None,
+                library_device_ms=None)
 
 
 def main_path(dev, card):
@@ -270,10 +329,12 @@ def main_path(dev, card):
     model.normalizer = Normalizer.fit(obs, act, nxt - obs)
 
     fused_mlp.fused_mlp_forward.launches = 0
+    fused_mlp.pack_weights.calls = 0
     jacobi.jacobi_solve.launches = 0
     paths = sampler.obtain_samples()
     launches = dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
                     jacobi_solve=jacobi.jacobi_solve.launches)
+    packs = fused_mlp.pack_weights.calls
     seconds = sampler.last_seconds
 
     for k, shape in (('observations', (N_ENVS, PATH_LEN, env.obs_dim)),
@@ -293,9 +354,12 @@ def main_path(dev, card):
         raise AssertionError('planner actions outside [-1, 1]')
     want = dict(fused_mlp=HORIZON * PATH_LEN,
                 jacobi_solve=env.frame_skip * PATH_LEN)
-    log(f'policy sampling launches {launches}, expected {want}')
+    log(f'policy sampling launches {launches}, expected {want}; weight '
+        f'packs {packs}, expected {PATH_LEN}')
     if launches != want:
         raise AssertionError(f'launch counts {launches} != {want}')
+    if packs != PATH_LEN:
+        raise AssertionError(f'{packs} weight packs != one per env step')
     returns = paths['rewards'].sum(axis=1)
     log(f'policy sampling (episode 1, cripple tasks drawn): '
         f'{N_ENVS}x{PATH_LEN} env steps in {seconds:.2f} s = '
@@ -348,6 +412,10 @@ def profile_policy_steps(dev, sampler):
         f'{device_us / 1e6 / plain_s:.3f} of the unprofiled wall; '
         f'{len(on_device) / PROFILE_LEN:.0f} device activities/step')
     log('profile parts (host, profiled) ' + json.dumps(parts))
+    pack_us = [e.device_time_total for e in events
+               if e.device_type == DeviceType.CPU and e.name == 'rollout.pack']
+    log(f'profile rollout.pack: {len(pack_us)} packs, device time '
+        f'{sum(pack_us) / 1e3 / PROFILE_LEN:.4f} ms per step')
     for kernel in ('fused_mlp_kernel', 'jacobi_kernel'):
         runs = [e.time_range.elapsed_us() for e in on_device
                 if kernel in e.name]
@@ -429,7 +497,8 @@ def main():
     for k in kernels:
         k['launches'] = launches[k['name']]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
+            'library_device_ms')
     log(f'total {time.time() - t_start:.1f} s')
     log(card_line())
     log(json.dumps({'kernels': [{k: kern[k] for k in keys}

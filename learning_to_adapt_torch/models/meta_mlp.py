@@ -13,7 +13,7 @@ import torch
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.models import core
 from learning_to_adapt_torch.models.normalizer import Normalizer
-from learning_to_adapt_torch.ops.fused_mlp import fused_mlp_forward
+from learning_to_adapt_torch.ops.fused_mlp import PackedMLP, fused_mlp_forward
 
 
 class MetaMLPDynamicsModel:
@@ -95,16 +95,19 @@ class MetaMLPDynamicsModel:
     # ------------------------------------------------------------- predict
     def predict_adapted_fn(self, adapted_params, norm, obs, act):
         """obs/act: (n_env, n, d), each env's rows through its own params
-        (leading env axis; a broadcast view of one set works too). The
-        planner path: bf16 products, f32 accumulation, in the fused-MLP
-        kernel on the card."""
+        (leading env axis; a broadcast view of one set works too), or their
+        ops.fused_mlp.pack_weights, which the planner makes once per step.
+        The planner path: bf16 products, f32 accumulation, in the fused-MLP
+        kernel on the card, which packs unpacked params on every call."""
         x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
-        delta = fused_mlp_forward(x, adapted_params['w'], adapted_params['b'],
-                                  self.hidden_nonlinearity)
+        p = adapted_params
+        ws, bs = (p, None) if isinstance(p, PackedMLP) else (p['w'], p['b'])
+        delta = fused_mlp_forward(x, ws, bs, self.hidden_nonlinearity)
         return obs + norm.denorm_delta(delta)
 
     def predict_fn(self, params, norm, obs, act):
-        """Single-parameter-set prediction of rows obs/act (N, d)."""
+        """Single-parameter-set prediction of rows obs/act (N, d); on the
+        card the params are packed for this one call."""
         batched = {k: [p.unsqueeze(0) for p in params[k]] for k in params}
         return self.predict_adapted_fn(batched, norm, obs[None],
                                        act[None])[0]

@@ -13,13 +13,19 @@ unit of Python loop whose outputs are stacked on the device. The carry
 reads a value back to the host: the step index and the adaptation gate are
 host integers.
 
+The planner's params (adapted, or the pre-update set broadcast to every env)
+are packed for the fused-MLP kernel once per step, and the horizon's
+predictions reuse the pack.
+
 Each step's parts are labelled for torch.profiler: 'rollout.plan' (with
-'rollout.adapt' inside it once adaptation is on) and 'rollout.env_step'.
+'rollout.adapt' inside it once adaptation is on, and 'rollout.pack') and
+'rollout.env_step'.
 """
 import torch
 from torch.profiler import record_function
 
 from learning_to_adapt_torch.models.meta_mlp import MetaMLPDynamicsModel
+from learning_to_adapt_torch.ops.fused_mlp import pack_weights
 
 
 def _segment_len(t_len, target=125):
@@ -80,11 +86,13 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
         else:
             # before the gate every env plans with the pre-update params
             merged = dynamics_model.broadcast_params(params, m)
+        with record_function('rollout.pack'):
+            packed = pack_weights(merged['w'], merged['b'])
 
         def predict(o_rows, a_rows):
             per = o_rows.shape[0] // m
             out = dynamics_model.predict_adapted_fn(
-                merged, norm, o_rows.reshape(m, per, -1),
+                packed, norm, o_rows.reshape(m, per, -1),
                 a_rows.reshape(m, per, -1))
             return out.reshape(o_rows.shape[0], -1)
         return policy.plan_fn(predict, obs, generator, candidates=candidates)

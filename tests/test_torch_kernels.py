@@ -5,6 +5,8 @@ no CPU or interpret mode). On a machine with one:
 
     python -m pytest tests/test_torch_kernels.py -m cuda -q
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -45,10 +47,14 @@ def _mlp(dev, g, r, dims, seed, shared=False):
     (1, 16, (26, 64, 20), 'sigmoid'),
 ])
 @pytest.mark.parametrize('shared', [False, True])
-def test_fused_mlp_kernel_matches_plain(dev, g, r, dims, act, shared):
+@pytest.mark.parametrize('packed', [False, True])
+def test_fused_mlp_kernel_matches_plain(dev, g, r, dims, act, shared, packed):
     x, ws, bs = _mlp(dev, g, r, dims, seed=len(dims) + r, shared=shared)
+    weights = (fused_mlp.pack_weights(ws, bs), None) if packed else (ws, bs)
+    if packed and shared:
+        assert weights[0].w.stride(0) == 0 or g == 1
     before = fused_mlp.fused_mlp_forward.launches
-    out = fused_mlp.fused_mlp_forward(x, ws, bs, act)
+    out = fused_mlp.fused_mlp_forward(x, *weights, act)
     torch.cuda.synchronize()
     assert fused_mlp.fused_mlp_forward.launches == before + 1
     ref = fused_mlp.fused_mlp_plain(x, ws, bs, act)
@@ -59,6 +65,32 @@ def test_fused_mlp_kernel_refuses_float64(dev):
     x, ws, bs = _mlp(dev, 2, 8, (26, 32, 20), seed=0)
     with pytest.raises(TypeError):
         fused_mlp.fused_mlp_forward(x.double(), ws, bs)
+
+
+def test_fused_mlp_kernel_refuses_other_widths(dev):
+    x, ws, bs = _mlp(dev, 2, 8, (26, 32, 20), seed=0)
+    other = fused_mlp.pack_weights(*_mlp(dev, 2, 8, (20, 32, 20), seed=1)[1:])
+    with pytest.raises(ValueError, match='packed for'):
+        fused_mlp.fused_mlp_forward(x, other)
+    three = fused_mlp.pack_weights(*_mlp(dev, 3, 8, (26, 32, 20), seed=1)[1:])
+    with pytest.raises(ValueError, match='packed for'):
+        fused_mlp.fused_mlp_forward(x, three)
+    assert fused_mlp.fused_mlp_forward(x, fused_mlp.pack_weights(ws, bs)) \
+        .shape == (2, 8, 20)
+
+
+def test_fused_mlp_kernel_refuses_short_stream(dev):
+    """The kernel reads as many tiles as the widths give: a stream one tile
+    short, or one bias short, is refused before any launch."""
+    x, ws, bs = _mlp(dev, 2, 8, (26, 130, 20), seed=0)
+    packed = fused_mlp.pack_weights(ws, bs)
+    before = fused_mlp.fused_mlp_forward.launches
+    for bad in (dataclasses.replace(
+                    packed, w=packed.w[:, :-fused_mlp.TILE_ELEMS]),
+                dataclasses.replace(packed, bs=packed.bs[:-1])):
+        with pytest.raises(ValueError, match='not a tile stream'):
+            fused_mlp.fused_mlp_forward(x, bad)
+    assert fused_mlp.fused_mlp_forward.launches == before
 
 
 def _system(dev, n_envs, n, seed):
