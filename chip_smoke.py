@@ -4,14 +4,18 @@
 
 Phases, each of which raises (exit code != 0) on failure:
   1. print the card (nvidia-smi name, power limit); build both CUDA kernels
-     from learning_to_adapt_torch/csrc with nvcc for sm_90a, in parallel;
+     from learning_to_adapt_torch/csrc with nvcc for sm_90a, and the Jacobi
+     kernel's handshake-only variant (jacobi_study.py), in parallel;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes, with the tolerance printed, and time kernel, plain
      version and (for the MLP) one library call with CUDA events, the host
      queued ahead so the times are the card's. The MLP kernel runs on
      weights packed once (pack_weights, timed on its own), with L2 warm
      and flushed; the library call's device time also comes from a
-     torch.profiler window;
+     torch.profiler window. The Jacobi kernel is held on real HalfCheetah
+     contact systems and on random SPD systems for 5 and 512 envs; its
+     launch tier is printed, and its device time is set beside the floor
+     of its sweep chain (the handshake-only variant on the same inputs);
   3. drive the main path: GrBAL adaptive-MPC sampling on HalfCheetah
      (cripple task) at the full width of run_scripts/run_grbal.py — 5 envs,
      500 candidates x horizon 10, a (512,512,512) ReLU meta-MLP, adaptation
@@ -52,6 +56,7 @@ ADAPT_BATCH, INNER_LR = 16, 1e-3
 PATH_LEN = 100
 PROFILE_LEN = 30
 JACOBI_SWEEPS = 60                    # 2 * OptionSpec.iterations
+JACOBI_WIDE_ENVS = 512                # bench.py bench_saturated's env count
 
 SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
               'cudaEventSynchronize')
@@ -126,16 +131,23 @@ def bound_ms(n_bytes, flops, peak_flops):
 
 
 def build_kernels():
+    """Build both kernels and the Jacobi floor variant; returns the
+    variant's library."""
+    import jacobi_study
     from learning_to_adapt_torch.ops import build
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        floor = pool.submit(jacobi_study.compile_variant, jacobi_study.FLOOR)
         paths = list(pool.map(build.build, ['fused_mlp', 'jacobi']))
-    log(f'built {[p.name for p in paths]} in {time.time() - t0:.1f} s '
-        '(parallel nvcc, -gencode arch=compute_90a,code=sm_90a)')
+        floor_lib, floor_path, _ = floor.result()
+    log(f'built {[p.name for p in paths + [floor_path]]} in '
+        f'{time.time() - t0:.1f} s (parallel nvcc, -gencode '
+        'arch=compute_90a,code=sm_90a)')
     for name, nvcc_log in build.BUILD_LOGS.items():
         for line in nvcc_log.splitlines():
             if 'registers' in line or 'spill' in line:
                 log(f'  {name}: {line.strip()}')
+    return floor_lib
 
 
 def check_fused_mlp(dev):
@@ -210,7 +222,8 @@ def check_fused_mlp(dev):
                 replaces='learning_to_adapt_tpu/ops/fused_mlp.py:102',
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                ms_cold=ms_cold, library_device_ms=library_device_ms)
+                ms_cold=ms_cold, library_device_ms=library_device_ms,
+                device_ms=device_ms(kernel), floor_ms=None, ms_512=None)
 
 
 def contact_systems(dev):
@@ -247,30 +260,28 @@ def contact_systems(dev):
     return captured[0]
 
 
-def check_jacobi(dev):
+def check_jacobi(dev, floor_lib):
     import torch
+    import jacobi_study
     from learning_to_adapt_torch.ops import jacobi as jc
     A, b, ainv, omega, n_sweeps = contact_systems(dev)
     n = A.shape[-1]
     n_active = int((b != 0).sum())
+    per_row, cols, rows, threads = jc.launch_shape(n)
     log(f'jacobi: HalfCheetah contact systems {tuple(A.shape)}, '
         f'{n_sweeps} sweeps, {n_active} active rows over {N_ENVS} envs, '
-        f'omega {[round(float(w), 4) for w in omega]}')
+        f'omega {[round(float(w), 4) for w in omega]}; launch tier: '
+        f'{per_row} threads per row, {cols} columns and {rows} rows per '
+        f'thread, {N_ENVS} blocks x {threads} threads')
     if n_sweeps != JACOBI_SWEEPS or n_active == 0:
         raise AssertionError('expected 60 sweeps over an active contact set')
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    m = torch.randn((N_ENVS, n, n), generator=gen, device=dev)
-    A_r = m @ m.transpose(-1, -2) + n * torch.eye(n, device=dev)
-    b_r = torch.randn((N_ENVS, n), generator=gen, device=dev)
-    ainv_r = 1.0 / torch.diagonal(A_r, dim1=-2, dim2=-1)
-    rho = torch.amax(A_r.abs().sum(-1) * ainv_r, dim=-1)
-    omega_r = torch.clamp(1.8 / rho, max=1.0)
-
+    spd = jacobi_study.system(dev, N_ENVS, n, seed=2)
+    wide = jacobi_study.system(dev, JACOBI_WIDE_ENVS, n, seed=3)
     errs = []
     for label, args in (('contact', (A, b, ainv, omega)),
-                        ('random SPD', (A_r, b_r, ainv_r, omega_r))):
+                        ('random SPD', spd),
+                        (f'random SPD, {JACOBI_WIDE_ENVS} envs', wide)):
         out = jc.jacobi_solve_cuda(*args, n_sweeps)
         ref = jc.jacobi_solve_plain(*args, n_sweeps)
         torch.cuda.synchronize()
@@ -282,20 +293,38 @@ def check_jacobi(dev):
         if not bool((out >= 0).all()):
             raise AssertionError('projected Jacobi returned a negative force')
 
-    ms = cuda_ms(lambda: jc.jacobi_solve_cuda(A, b, ainv, omega, n_sweeps))
+    def kernel(args=(A, b, ainv, omega)):
+        return jc.jacobi_solve_cuda(*args, n_sweeps)
+    ms = cuda_ms(kernel)
+    ms_512 = cuda_ms(lambda: kernel(wide))
     plain_ms = cuda_ms(lambda: jc.jacobi_solve_plain(A, b, ainv, omega,
                                                      n_sweeps))
+    dev_ms = device_ms(kernel)
+    dev_ms_512 = device_ms(lambda: kernel(wide))
+
+    def floor_device_ms(args):
+        return jacobi_study.run_variant(
+            jacobi_study.FLOOR, {jacobi_study.FLOOR: floor_lib},
+            lambda: device_ms(lambda: kernel(args)))
+    floor_ms = floor_device_ms((A, b, ainv, omega))
+    floor_ms_512 = floor_device_ms(wide)
     n_bytes = 4 * (A.numel() + 3 * b.numel() + omega.numel())
     flops = n_sweeps * N_ENVS * n * (2 * n + 5)
     b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
-    log(f'jacobi per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-        f'bound {b_ms:.6f} ms ({b_by}); chain of {n_sweeps} dependent sweeps')
+    log(f'jacobi per launch, {N_ENVS} envs: kernel {ms:.4f} ms (device '
+        f'{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms '
+        f'({b_by}); floor of the chain of {n_sweeps} dependent sweeps '
+        f'(handshake only, device) {floor_ms:.4f} ms, kernel/floor '
+        f'{dev_ms / floor_ms:.2f}')
+    log(f'jacobi per launch, {JACOBI_WIDE_ENVS} envs: kernel {ms_512:.4f} ms '
+        f'(device {dev_ms_512:.4f} ms), floor (device) {floor_ms_512:.4f} ms')
     return dict(name='jacobi_solve', route='cuda',
                 source='learning_to_adapt_torch/csrc/jacobi.cu',
                 replaces='learning_to_adapt_tpu/ops/pallas_jacobi.py:73',
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_cold=None,
-                library_device_ms=None)
+                library_device_ms=None, device_ms=dev_ms, floor_ms=floor_ms,
+                ms_512=ms_512)
 
 
 def main_path(dev, card):
@@ -489,8 +518,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
 
-    build_kernels()
-    kernels = [check_fused_mlp(dev), check_jacobi(dev)]
+    floor_lib = build_kernels()
+    kernels = [check_fused_mlp(dev), check_jacobi(dev, floor_lib)]
     launches, sampler = main_path(dev, card)
     profile_policy_steps(dev, sampler)
     check_host_syncs(dev, sampler)
@@ -498,7 +527,7 @@ def main():
         k['launches'] = launches[k['name']]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
-            'library_device_ms')
+            'library_device_ms', 'device_ms', 'floor_ms', 'ms_512')
     log(f'total {time.time() - t_start:.1f} s')
     log(card_line())
     log(json.dumps({'kernels': [{k: kern[k] for k in keys}

@@ -103,7 +103,12 @@ def _system(dev, n_envs, n, seed):
     return a, b, aii_inv, torch.clamp(1.8 / rho, max=1.0)
 
 
-@pytest.mark.parametrize('n_envs,n', [(5, 76), (3, 7), (2, 200)])
+#: one N or more in every launch tier of ops/jacobi.py TIERS, and its edges
+JACOBI_NS = (7, 64, 76, 128, 200, jacobi.MAX_ROWS)
+
+
+@pytest.mark.parametrize('n_envs', [1, 5, 512])
+@pytest.mark.parametrize('n', JACOBI_NS)
 def test_jacobi_kernel_matches_plain(dev, n_envs, n):
     args = _system(dev, n_envs, n, seed=n)
     before = jacobi.jacobi_solve.launches
@@ -113,6 +118,54 @@ def test_jacobi_kernel_matches_plain(dev, n_envs, n):
     torch.testing.assert_close(out, jacobi.jacobi_solve_plain(*args, 60),
                                **JACOBI_TOL)
     assert (out >= 0).all()
+
+
+def _special_system(dev, case):
+    """N = 76, 5 envs: omega = 1 on a strongly diagonal system; b >= 0, so
+    f stays 0; or row and column 3 zero, as an inactive contact row
+    leaves them (b = 0 and aii_inv from the clamped diagonal)."""
+    a, b, aii_inv, omega = _system(dev, 5, 76, seed=3)
+    if case == 'omega_one':
+        gen = torch.Generator(device=dev).manual_seed(4)
+        m = torch.randn((5, 76, 76), generator=gen, device=dev)
+        a = m @ m.transpose(-1, -2) / 76 + 76 * torch.eye(76, device=dev)
+        aii_inv = 1.0 / torch.diagonal(a, dim1=-2, dim2=-1)
+        omega = torch.ones(5, device=dev)
+    elif case == 'b_nonnegative':
+        b = b.abs()
+    else:
+        a = a.clone()
+        a[:, 3, :] = 0
+        a[:, :, 3] = 0
+        b = b.clone()
+        b[:, 3] = 0
+        aii_inv = 1.0 / torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1),
+                                    min=1e-12)
+    return a, b, aii_inv, omega
+
+
+@pytest.mark.parametrize('case', ['omega_one', 'b_nonnegative', 'zero_row'])
+def test_jacobi_kernel_special_systems(dev, case):
+    args = _special_system(dev, case)
+    before = jacobi.jacobi_solve.launches
+    out = jacobi.jacobi_solve(*args, 60)
+    torch.cuda.synchronize()
+    assert jacobi.jacobi_solve.launches == before + 1
+    torch.testing.assert_close(out, jacobi.jacobi_solve_plain(*args, 60),
+                               **JACOBI_TOL)
+    assert (out >= 0).all()
+    if case == 'b_nonnegative':
+        assert (out == 0).all()
+    if case == 'zero_row':
+        assert (out[:, 3] == 0).all()
+
+
+def test_jacobi_kernel_refuses_n_above_largest_tier(dev):
+    args = _system(dev, 2, jacobi.MAX_ROWS + 1, seed=0)
+    before = jacobi.jacobi_solve.launches
+    with pytest.raises(ValueError, match='largest launch tier'):
+        jacobi.jacobi_solve(*args, 60)
+    assert jacobi.jacobi_solve.launches == before
 
 
 def test_jacobi_kernel_refuses_float64(dev):

@@ -218,3 +218,52 @@ def test_jacobi_kernel_entry_raises_without_toolkit():
         port_jacobi.jacobi_solve_cuda(a.double(), b, aii_inv, omega, 10)
     with pytest.raises(RuntimeError, match='nvcc|cudaError'):
         port_jacobi.jacobi_solve_cuda(a, b, aii_inv, omega, 10)
+
+
+def test_jacobi_kernel_entry_refuses_n_above_largest_tier_before_build():
+    """An N above the largest launch tier raises ValueError before the
+    kernel is built or launched, with or without a toolkit."""
+    n = port_jacobi.MAX_ROWS + 1
+    a, b, aii_inv, omega = (t(x) for x in _random_system(n, 1, 2,
+                                                         np.float32))
+    before = port_jacobi.jacobi_solve.launches
+    with pytest.raises(ValueError, match='largest launch tier'):
+        port_jacobi.jacobi_solve_cuda(a, b, aii_inv, omega, 10)
+    assert port_jacobi.jacobi_solve.launches == before
+
+
+def test_jacobi_kernel_entry_launches_nothing_for_an_empty_batch():
+    """No envs: the entry returns an empty result without building or
+    launching the kernel."""
+    a, b, aii_inv, omega = (t(x) for x in _random_system(8, 2, 1,
+                                                         np.float32))
+    before = port_jacobi.jacobi_solve.launches
+    out = port_jacobi.jacobi_solve_cuda(a[:0], b[:0], aii_inv[:0],
+                                        omega[:0], 10)
+    assert out.shape == (0, 8)
+    assert port_jacobi.jacobi_solve.launches == before
+
+
+@pytest.mark.parametrize('n,shape', [
+    (1, (4, 8, 1, 32)), (7, (4, 8, 1, 32)), (32, (4, 8, 1, 128)),
+    (33, (4, 16, 2, 96)), (64, (4, 16, 2, 128)), (76, (4, 20, 4, 96)),
+    (80, (4, 20, 4, 96)), (81, (4, 32, 2, 192)), (128, (4, 32, 2, 256)),
+    (129, (4, 56, 2, 288)), (200, (4, 56, 2, 416)), (224, (4, 56, 2, 448)),
+])
+def test_jacobi_launch_tier(n, shape):
+    """N -> (threads per row, columns per thread, rows per thread, threads
+    per block)."""
+    assert port_jacobi.launch_shape(n) == shape
+
+
+def test_jacobi_launch_tiers_fit_every_n():
+    """Every N up to MAX_ROWS gets a block of whole warps (at most 1024
+    threads) whose row groups cover N rows and whose columns cover N, and
+    every tier is used."""
+    used = set()
+    for n in range(1, port_jacobi.MAX_ROWS + 1):
+        per_row, cols, rows, threads = port_jacobi.launch_shape(n)
+        used.add((per_row, cols, rows))
+        assert threads % 32 == 0 and threads <= 1024
+        assert threads // per_row * rows >= n and per_row * cols >= n
+    assert used == set(port_jacobi.TIERS)
