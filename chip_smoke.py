@@ -33,15 +33,37 @@ Phases, each of which raises (exit code != 0) on failure:
   5. watch one more policy sampling call for the host waiting on the card
      (the profiler's CUDA runtime sync calls and CUDA's sync-debug mode) and
      fail if anything waits once a step or more;
-  6. print the card line again, one JSON line describing every kernel,
+  6. the trainer: run_grbal.run_experiment in a temporary directory at
+     the same width with --task cripple, seed 0, max_path_length 100 and
+     n_itr 3 (one random, then two policy iterations; 100 epochs per fit),
+     then --resume with n_itr 4. progress.csv must carry the header of
+     results/grbal_halfcheetah_tpu_r3.csv letter for letter and finite
+     losses and returns, params.pkl must load and re-create its env, the
+     resumed run must start at itr 3, and the launch counters (set to 0
+     before each run) must show, per iteration, 10 fused-MLP launches and
+     1 pack per policy env step, 1 Jacobi launch per physics step, and no
+     launch of either kernel from the fit;
+  7. time the meta fit at full width on a dataset of the size the
+     canonical run holds by iteration 16 (64 train paths x 1000 steps: 256
+     meta-train steps an epoch; 16 valid paths: 64 steps), drawn from a
+     seeded generator around the sampled paths' statistics, for timing
+     only: 1 warm-up and 3 timed epochs (CUDA events, host clock), one
+     epoch under torch.profiler (device time, device activities and host
+     time per step, busy share), and one epoch watched for host waits as
+     in phase 5, failing on any wait once per train step or more;
+  8. print the card line again, one JSON line describing every kernel,
      then the contract line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package. Without a card it exits 2
 before printing any result.
 """
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -55,6 +77,11 @@ N_ENVS, N_CANDIDATES, HORIZON = 5, 500, 10
 ADAPT_BATCH, INNER_LR = 16, 1e-3
 PATH_LEN = 100
 PROFILE_LEN = 30
+TRAIN_ITR = 3                         # one random, two policy iterations
+FIT_PATHS, FIT_VALID_PATHS, FIT_T = 64, 16, 1000
+FIT_TIMED_EPOCHS = 3
+REPO = os.path.dirname(os.path.abspath(__file__))
+HEADER_CSV = os.path.join(REPO, 'results', 'grbal_halfcheetah_tpu_r3.csv')
 JACOBI_SWEEPS = 60                    # 2 * OptionSpec.iterations
 JACOBI_WIDE_ENVS = 512                # bench.py bench_saturated's env count
 
@@ -333,7 +360,6 @@ def main_path(dev, card):
     from learning_to_adapt_torch.envs import HalfCheetahEnv, normalize
     from learning_to_adapt_torch.models import (
         MetaMLPDynamicsModel, Normalizer)
-    from learning_to_adapt_torch.ops import fused_mlp, jacobi
     from learning_to_adapt_torch.policies import MPCController
     from learning_to_adapt_torch.samplers import Sampler
 
@@ -357,13 +383,10 @@ def main_path(dev, card):
                      ('observations', 'actions', 'next_observations'))
     model.normalizer = Normalizer.fit(obs, act, nxt - obs)
 
-    fused_mlp.fused_mlp_forward.launches = 0
-    fused_mlp.pack_weights.calls = 0
-    jacobi.jacobi_solve.launches = 0
+    zero_counters()
     paths = sampler.obtain_samples()
-    launches = dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
-                    jacobi_solve=jacobi.jacobi_solve.launches)
-    packs = fused_mlp.pack_weights.calls
+    launches = counters()
+    packs = launches.pop('pack')
     seconds = sampler.last_seconds
 
     for k, shape in (('observations', (N_ENVS, PATH_LEN, env.obs_dim)),
@@ -454,27 +477,21 @@ def profile_policy_steps(dev, sampler):
         {k: round(us / 1e3 / PROFILE_LEN, 4) for k, us in top}))
 
 
-def check_host_syncs(dev, sampler):
-    """One policy sampling call of PROFILE_LEN steps, watched two ways for
-    the host waiting on the card: torch.profiler's record of the CUDA
-    runtime's sync calls, grouped by the operator that made them, and CUDA's
-    sync-debug mode, grouped by Python call site. Only once-per-call work
-    (the reset, the final copy to the host) may wait; anything that waits
-    once a step or more fails the run."""
-    import os
+def watch_host_syncs(fn, n_steps, what):
+    """Runs fn once, watched two ways for the host waiting on the card:
+    torch.profiler's record of the CUDA runtime's sync calls, grouped by the
+    operator that made them, and CUDA's sync-debug mode, grouped by Python
+    call site. Anything that waits n_steps times or more (once a step) fails
+    the run."""
     import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from learning_to_adapt_torch.samplers import Sampler
-    sync_sampler = Sampler(sampler.env, sampler.policy, N_ENVS, PROFILE_LEN,
-                           adapt_batch_size=ADAPT_BATCH, seed=2, device=dev)
-    sync_sampler.obtain_samples()                  # warm-up, not counted
     with warnings.catch_warnings(record=True) as caught, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
         try:
-            sync_sampler.obtain_samples()
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode('default')
     by_op = {}
@@ -488,13 +505,309 @@ def check_host_syncs(dev, sampler):
         if 'synchronizing' in str(w.message):
             site = f'{os.path.relpath(w.filename)}:{w.lineno}'
             sites[site] = sites.get(site, 0) + 1
-    log(f'host waits in one {PROFILE_LEN}-step policy sampling call: '
-        f'runtime sync calls by operator {json.dumps(by_op)}; '
-        f'sync-debug mode by call site {json.dumps(sites)}')
+    log(f'host waits in {what}: runtime sync calls by operator '
+        f'{json.dumps(by_op)}; sync-debug mode by call site '
+        f'{json.dumps(sites)}')
     per_step = {k: n for counts in (by_op, sites) for k, n in counts.items()
-                if n >= PROFILE_LEN}
+                if n >= n_steps}
     if per_step:
         raise AssertionError(f'host waits once a step or more: {per_step}')
+
+
+def check_host_syncs(dev, sampler):
+    """One policy sampling call of PROFILE_LEN steps watched for host
+    waits: only once-per-call work (the reset, the final copy to the host)
+    may wait."""
+    from learning_to_adapt_torch.samplers import Sampler
+    sync_sampler = Sampler(sampler.env, sampler.policy, N_ENVS, PROFILE_LEN,
+                           adapt_batch_size=ADAPT_BATCH, seed=2, device=dev)
+    sync_sampler.obtain_samples()                  # warm-up, not counted
+    watch_host_syncs(sync_sampler.obtain_samples, PROFILE_LEN,
+                     f'one {PROFILE_LEN}-step policy sampling call')
+
+
+def counters():
+    from learning_to_adapt_torch.ops import fused_mlp, jacobi
+    return dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
+                pack=fused_mlp.pack_weights.calls,
+                jacobi_solve=jacobi.jacobi_solve.launches)
+
+
+def zero_counters():
+    from learning_to_adapt_torch.ops import fused_mlp, jacobi
+    fused_mlp.fused_mlp_forward.launches = 0
+    fused_mlp.pack_weights.calls = 0
+    jacobi.jacobi_solve.launches = 0
+
+
+@contextlib.contextmanager
+def counted_calls(record):
+    """Appends (what, launches made inside the call) to record for every
+    Sampler.obtain_samples and MetaMLPDynamicsModel.fit call."""
+    from learning_to_adapt_torch.models import MetaMLPDynamicsModel
+    from learning_to_adapt_torch.samplers import Sampler
+    originals = (Sampler.obtain_samples, MetaMLPDynamicsModel.fit)
+
+    def counted(what, fn):
+        def wrapped(*args, **kwargs):
+            before = counters()
+            out = fn(*args, **kwargs)
+            after = counters()
+            label = what
+            if what == 'sample':
+                label = 'random' if kwargs.get('random') else 'policy'
+            record.append((label, {k: after[k] - before[k] for k in after}))
+            return out
+        return wrapped
+    Sampler.obtain_samples = counted('sample', originals[0])
+    MetaMLPDynamicsModel.fit = counted('fit', originals[1])
+    try:
+        yield record
+    finally:
+        Sampler.obtain_samples, MetaMLPDynamicsModel.fit = originals
+
+
+def run_trainer(cfg, record):
+    """run_experiment with the counts set to 0 just before it; its log
+    (100 epoch lines a fit) is kept and printed only on failure."""
+    from learning_to_adapt_torch import run_grbal
+    from learning_to_adapt_torch.utils import logging as logger
+    out = io.StringIO()
+    zero_counters()
+    try:
+        with counted_calls(record), contextlib.redirect_stdout(out):
+            trainer = run_grbal.run_experiment(cfg)
+    except BaseException:
+        print(out.getvalue()[-8000:], file=sys.stderr)
+        raise
+    finally:
+        logger.Logger.CURRENT.close()
+    return trainer, counters()
+
+
+def read_progress(exp_dir):
+    import csv
+    with open(os.path.join(exp_dir, 'progress.csv')) as f:
+        header = f.readline()
+        f.seek(0)
+        return header, list(csv.DictReader(f))
+
+
+def check_trainer_launches(frame_skip, record, total, resume_record,
+                           resume_total):
+    """Per call of the trainer runs: 10 fused-MLP launches and 1 pack per
+    policy env step, 1 Jacobi launch per physics step in every sampling
+    call, nothing from the fit, and no launch outside those calls. Returns
+    the launches of one policy iteration."""
+    policy_itr = dict(fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
+                      jacobi_solve=frame_skip * PATH_LEN)
+    want = {'random': dict(policy_itr, fused_mlp=0, pack=0),
+            'policy': policy_itr,
+            'fit': dict(fused_mlp=0, pack=0, jacobi_solve=0)}
+    labels = ['random', 'fit'] + ['policy', 'fit'] * (TRAIN_ITR - 1)
+    for name, rec, tot, want_labels in (
+            ('run', record, total, labels),
+            ('resumed run', resume_record, resume_total, ['policy', 'fit'])):
+        got = [what for what, _ in rec]
+        if got != want_labels:
+            raise AssertionError(f'{name}: calls {got} != {want_labels}')
+        for what, counts in rec:
+            if counts != want[what]:
+                raise AssertionError(f'{name}, {what}: launches {counts} != '
+                                     f'{want[what]}')
+        summed = {k: sum(c[k] for _, c in rec) for k in tot}
+        if tot != summed:
+            raise AssertionError(f'{name}: launches outside sampling and '
+                                 f'fit: {tot} != {summed}')
+    return policy_itr
+
+
+def trainer_phase(dev, card):
+    """Phase 6: the GrBAL meta-training loop through the port's entry
+    point, then a resume. Returns (per policy iteration launches, whole-run
+    launches, the trained model)."""
+    import math
+    import pickle
+    from learning_to_adapt_torch import run_grbal
+    from learning_to_adapt_torch.envs import HalfCheetahEnv
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            cfg = dict(run_grbal.config, task='cripple', seed=0,
+                       device=str(dev), exp_name='chip_smoke',
+                       n_itr=TRAIN_ITR, max_path_length=PATH_LEN,
+                       resume=False, profile=False)
+            t0 = time.time()
+            record = []
+            trainer, total = run_trainer(cfg, record)
+            run_s = time.time() - t0
+            exp_dir = run_grbal.experiment_dir(cfg)
+            header, rows = read_progress(exp_dir)
+            with open(os.path.join(exp_dir, 'params.pkl'), 'rb') as f:
+                snap = pickle.load(f)
+            t0 = time.time()
+            resume_record = []
+            resumed, resume_total = run_trainer(
+                dict(cfg, n_itr=TRAIN_ITR + 1, resume=True), resume_record)
+            resume_s = time.time() - t0
+            _, resumed_rows = read_progress(exp_dir)
+        finally:
+            os.chdir(cwd)
+
+    with open(HEADER_CSV) as f:
+        want_header = f.readline()
+    if header != want_header:
+        raise AssertionError(f'progress.csv header {header!r} != the JAX '
+                             f'run\'s {want_header!r}')
+    for r in rows + resumed_rows:
+        for k in ('Pre-Loss', 'Post-Loss', 'EnvTrajs-AverageReturn'):
+            if not math.isfinite(float(r[k])):
+                raise AssertionError(f'itr {r["Itr"]}: {k} = {r[k]}')
+    if [int(r['Itr']) for r in rows] != list(range(TRAIN_ITR)):
+        raise AssertionError(f'itrs {[r["Itr"] for r in rows]}')
+    env = snap['env'].wrapped_env
+    if not (isinstance(env, HalfCheetahEnv) and env.task == 'cripple'
+            and snap['itr'] == TRAIN_ITR - 1):
+        raise AssertionError('params.pkl did not re-create its env')
+    # the logger, like the JAX package's, starts progress.csv anew on
+    # configure: the resumed run's file holds its own iteration
+    if resumed.start_itr != TRAIN_ITR or [
+            int(r['Itr']) for r in resumed_rows] != [TRAIN_ITR]:
+        raise AssertionError(f'resume started at {resumed.start_itr}, '
+                             f'wrote itrs {[r["Itr"] for r in resumed_rows]}')
+
+    policy_itr = check_trainer_launches(
+        trainer.env.wrapped_env.frame_skip, record, total, resume_record,
+        resume_total)
+    log(f'trainer (run_grbal.run_experiment, --task cripple, seed 0, '
+        f'{cfg["num_rollouts"]} envs x {PATH_LEN} steps, {TRAIN_ITR} itrs, '
+        f'{cfg["dynamic_model_epochs"]} epochs max) on {card}: '
+        f'{run_s:.1f} s; resume to itr {TRAIN_ITR} {resume_s:.1f} s')
+    for r in rows + resumed_rows:
+        log(f'  itr {r["Itr"]}: Time-EnvSampling {float(r["Time-EnvSampling"]):.3f} s, '
+            f'Time-ModelFit {float(r["Time-ModelFit"]):.3f} s, Epochs '
+            f'{r["Epochs"]}, Pre-Loss {float(r["Pre-Loss"]):.5f}, Post-Loss '
+            f'{float(r["Post-Loss"]):.5f}, AverageReturn '
+            f'{float(r["EnvTrajs-AverageReturn"]):.2f}')
+    log(f'trainer launches per call: {json.dumps(record)}; whole run '
+        f'{json.dumps(total)}; resumed run {json.dumps(resume_total)}')
+    return policy_itr, total, trainer.dynamics_model
+
+
+def fit_data(model, n_paths, gen):
+    """n_paths staged paths of FIT_T steps (obs, act, delta), for timing
+    only: obs and delta Gaussian around the model normalizer's statistics
+    (those of the sampled paths), actions uniform in [-1, 1]; zero-padded
+    to the fit's path capacity, as fit stages them."""
+    import torch
+    from learning_to_adapt_torch.models.meta_mlp import PATH_CHUNK
+    norm, dev = model.normalizer, model.device
+    cap = -(-n_paths // PATH_CHUNK) * PATH_CHUNK
+    data = torch.zeros((cap, FIT_T, 2 * model.obs_dim + model.act_dim),
+                       device=dev)
+
+    def gauss(mean, std):
+        return mean + std * torch.randn((n_paths, FIT_T, mean.shape[0]),
+                                        generator=gen, device=dev)
+    data[:n_paths] = torch.cat([
+        gauss(norm.obs_mean, norm.obs_std),
+        2 * torch.rand((n_paths, FIT_T, model.act_dim), generator=gen,
+                       device=dev) - 1,
+        gauss(norm.delta_mean, norm.delta_std)], dim=-1)
+    return data
+
+
+def fit_phase(model, card):
+    """Phase 7: the meta fit's epoch at full width on a dataset of the size
+    the canonical run holds by iteration 16."""
+    import math
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(7)
+    train = fit_data(model, FIT_PATHS, gen)
+    test = fit_data(model, FIT_VALID_PATHS, gen)
+    _, _, steps, steps_test = model._fit_shapes(FIT_PATHS, FIT_VALID_PATHS,
+                                                FIT_T)
+    if (steps, steps_test) != (256, 64):
+        raise AssertionError(f'steps per epoch {steps}, {steps_test}')
+    state = dict(params=model.params, opt_state=model.opt_state)
+
+    def epoch():
+        """One epoch and its one read of the losses, as fit runs it."""
+        (state['params'], state['opt_state'], post, pre,
+         valid) = model.epoch_fn(state['params'], state['opt_state'],
+                                 model.normalizer, train, test, FIT_PATHS,
+                                 FIT_VALID_PATHS, steps, steps_test, gen)
+        return torch.stack([post, pre, valid]).tolist()
+
+    t0 = time.time()
+    losses = epoch()                                 # warm-up
+    warm_s = time.time() - t0
+    walls, events = [], []
+    for _ in range(FIT_TIMED_EPOCHS):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        start.record()
+        losses = epoch()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        events.append(start.elapsed_time(end))
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f'fit losses {losses}')
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        epoch()
+        torch.cuda.synchronize()
+        prof_s = time.time() - t0
+    evs = prof.events()
+    on_device = [e for e in evs if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith('fit.')
+                 and not getattr(e, 'is_user_annotation', False)]
+    device_us = sum(e.time_range.elapsed_us() for e in on_device)
+    # host time of each labelled part (the kernels of a backward pass are
+    # launched from autograd's device thread, outside these labels, so
+    # device time is only read for the epoch as a whole)
+    parts = {}
+    for e in evs:
+        if e.device_type == DeviceType.CPU and e.name.startswith('fit.'):
+            n, host = parts.get(e.name, (0, 0.0))
+            parts[e.name] = (n + 1, host + e.time_range.elapsed_us())
+    n_train = parts.get('fit.train_step', (0,))[0]
+    if n_train != steps:
+        raise AssertionError(f'{n_train} labelled train steps != {steps}')
+    ms_step = sum(events) / len(events) / steps
+    s_epoch = sum(walls) / len(walls)
+    log(f'fit at {FIT_PATHS} train x {FIT_T} steps ({steps} meta-train '
+        f'steps + {steps_test} valid steps an epoch; data drawn for timing '
+        f'only) on {card}: warm-up epoch {warm_s:.3f} s; epochs '
+        f'{[round(w, 3) for w in walls]} s, CUDA events '
+        f'{[round(e, 1) for e in events]} ms = {ms_step:.3f} ms per '
+        f'meta-train step (valid steps included); {s_epoch:.3f} s per epoch')
+    log(f'fit profile (one epoch): wall {prof_s:.3f} s profiled; device time '
+        f'{device_us / 1e3 / steps:.4f} ms per train step (valid included), '
+        f'{len(on_device) / steps:.0f} device activities per train step; busy '
+        f'share {device_us / 1e6 / prof_s:.3f} of the profiled wall, '
+        f'{device_us / 1e6 / s_epoch:.3f} of the unprofiled wall; parts '
+        '(host, profiled) ' + json.dumps(
+            {k: dict(calls=n, host_ms_per_call=round(h / n / 1e3, 4))
+             for k, (n, h) in parts.items()}))
+    top = {}
+    for e in on_device:
+        top[e.name[:60]] = top.get(e.name[:60], 0) + e.time_range.elapsed_us()
+    log('fit profile top device activities (ms per train step): ' +
+        json.dumps({k: round(us / 1e3 / steps, 4) for k, us in sorted(
+            top.items(), key=lambda kv: -kv[1])[:8]}))
+    watch_host_syncs(epoch, steps,
+                     f'one fit epoch of {steps} meta-train steps')
 
 
 def main():
@@ -523,11 +836,20 @@ def main():
     launches, sampler = main_path(dev, card)
     profile_policy_steps(dev, sampler)
     check_host_syncs(dev, sampler)
+    per_policy_itr, trainer_total, model = trainer_phase(dev, card)
+    for name in launches:
+        if launches[name] != per_policy_itr[name]:
+            raise AssertionError(f'{name}: sampling phase {launches[name]} '
+                                 'launches, trainer policy iteration '
+                                 f'{per_policy_itr[name]}')
+    fit_phase(model, card)
     for k in kernels:
-        k['launches'] = launches[k['name']]
+        k['launches'] = per_policy_itr[k['name']]
+        k['trainer_launches'] = trainer_total[k['name']]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
-            'library_device_ms', 'device_ms', 'floor_ms', 'ms_512')
+            'library_device_ms', 'device_ms', 'floor_ms', 'ms_512',
+            'trainer_launches')
     log(f'total {time.time() - t_start:.1f} s')
     log(card_line())
     log(json.dumps({'kernels': [{k: kern[k] for k in keys}

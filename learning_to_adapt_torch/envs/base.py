@@ -22,6 +22,8 @@ from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.physics import engine
 from learning_to_adapt_torch.physics.spec import (
     MutableModel, PhysicsModel, batched_mutable, default_mutable)
+from learning_to_adapt_torch.utils import logging as logger
+from learning_to_adapt_torch.utils.serializable import Serializable
 
 #: joint speed above which a step counts as diverged (envs/base.py:162-171)
 UNSTABLE_QVEL = 150.0
@@ -37,9 +39,11 @@ class EnvState:
     episode: Any      # (E,) int32 episode counter
 
 
-class TorchEnv:
+class TorchEnv(Serializable):
     """Base env: subclasses define model, observation, reward and task
-    sampling. Instances hold static config and the nominal model tensors."""
+    sampling. Instances hold static config and the nominal model tensors.
+    Serializable: pickling replays the constructor, device included, which
+    is how envs ride in params.pkl snapshots."""
 
     name: str = 'env'
 
@@ -47,6 +51,9 @@ class TorchEnv:
     dtype = torch.float32
 
     def __init__(self, task=None, reset_every_episode=False, device='cuda'):
+        if not getattr(self, '_serializable_initialized', False):
+            # fallback capture for subclasses that do not quick_init
+            Serializable.quick_init(self, locals())
         task = None if task == 'None' else task
         self.task = task
         self.reset_every_episode = reset_every_episode
@@ -151,6 +158,16 @@ class TorchEnv:
                              obs=obs, t=state.t + 1, episode=state.episode)
         return new_state, obs, reward, done, {}
 
+    def log_diagnostics(self, paths, prefix=''):
+        """Forward-progress stats over collected paths: progress is the
+        change in obs[..., -3], the COM x position."""
+        obs = paths['observations']
+        progs = obs[:, -1, -3] - obs[:, 0, -3]
+        logger.logkv(prefix + 'AverageForwardProgress', float(progs.mean()))
+        logger.logkv(prefix + 'MaxForwardProgress', float(progs.max()))
+        logger.logkv(prefix + 'MinForwardProgress', float(progs.min()))
+        logger.logkv(prefix + 'StdForwardProgress', float(progs.std()))
+
     def body_comvel(self, data, body_name):
         return data.subtree_comvel[:, self.model.body_id(body_name)]
 
@@ -158,12 +175,13 @@ class TorchEnv:
         return data.subtree_com[:, self.model.body_id(body_name)]
 
 
-class NormalizedEnv:
+class NormalizedEnv(Serializable):
     """Action-normalizing wrapper: planner/policy space is [-1,1]^act_dim,
     rescaled and clipped to the env bounds (envs/base.py NormalizedEnv; its
     optional running obs/reward normalization is not ported)."""
 
     def __init__(self, env: TorchEnv):
+        Serializable.quick_init(self, locals())
         self.wrapped_env = env
 
     def __getattr__(self, name):

@@ -7,6 +7,7 @@ import torch
 
 from learning_to_adapt_torch.envs.base import TorchEnv
 from learning_to_adapt_torch.envs.model_defs import get_model
+from learning_to_adapt_torch.utils.serializable import Serializable
 
 
 class HalfCheetahEnv(TorchEnv):
@@ -19,6 +20,7 @@ class HalfCheetahEnv(TorchEnv):
 
     def __init__(self, task='cripple', reset_every_episode=False,
                  cripple_set=None, **kw):
+        Serializable.quick_init(self, locals())
         self.cripple_set = (tuple(int(a) for a in cripple_set)
                             if cripple_set is not None
                             else tuple(range(1, 6)))

@@ -1,19 +1,96 @@
 """Meta-learned (MAML) dynamics model for GrBAL (models/meta_mlp.py).
 
-The sampling-side half of the JAX model: parameters, the f32 inner
-adaptation step, per-env adaptation and the planner's bf16 prediction. The
-meta-training fit (meta_loss_fn, fit, state_dict) follows in the next slice
-of the port.
+    inner_step(theta, window)    theta' = theta - alpha * grad mse   (adapt)
+    meta_loss(theta, pre, post)  mean_task mse(inner_step(theta, pre), post)
+                                 differentiated through the inner step
+    predict(theta_or_adapted)    adapted params carry a leading env axis
 
-    inner_step(theta, window)  theta' = theta - alpha * grad mse   (adapt)
-    predict(theta_or_adapted)  adapted params carry a leading env axis
+Training batches are contiguous windows of 2*batch_size steps at random
+(path, offset) positions, pre/post = the time-adjacent halves. The fit runs
+in f32 (torch.matmul, TF32 off: device.resolve_device); bf16 is the
+planner's prediction path only, in the fused-MLP kernel.
+
+A fit stages its dataset on the device once, draws the window indices on
+the device, and reads the losses back once per epoch, for the early stop:
+no train step waits for the device. The host RNG (numpy, seed + 1) is
+consumed exactly as the JAX package consumes it (one permutation per fit
+for the train/valid split, one draw that seeds the window generator), so
+every fit's split and aggregated buffers equal the JAX package's.
 """
+from dataclasses import fields
+
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.models import core
-from learning_to_adapt_torch.models.normalizer import Normalizer
+from learning_to_adapt_torch.models.normalizer import (
+    Normalizer, normalizer_from_numpy)
 from learning_to_adapt_torch.ops.fused_mlp import PackedMLP, fused_mlp_forward
+
+PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
+
+
+def _bucket_pow2(n):
+    """Round a step count to the nearest power of two (>= 1), as the JAX
+    package does to bound its recompiles; kept so that an epoch runs the
+    same number of steps."""
+    if n <= 1:
+        return 1
+    return int(2 ** round(np.log2(n)))
+
+
+def _leaves(tree):
+    return tree['w'] + tree['b']
+
+
+def _tree(leaves, n_w):
+    return {'w': list(leaves[:n_w]), 'b': list(leaves[n_w:])}
+
+
+class ClipAdam:
+    """optax.chain(clip_by_global_norm(max_norm), adam(learning_rate)) on
+    {'w': [...], 'b': [...]} parameter trees: the global norm clip
+    `g if norm < max_norm else g / norm * max_norm` (not
+    clip_grad_norm_'s max_norm / (norm + 1e-6)), then Adam with optax's
+    bias correction. The state is dict(count, mu, nu) on the params'
+    device; nothing here reads a device value on the host."""
+
+    def __init__(self, learning_rate, max_norm=100.0, b1=0.9, b2=0.999,
+                 eps=1e-8):
+        self.learning_rate = learning_rate
+        self.max_norm = max_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        zeros = {k: [torch.zeros_like(p) for p in v]
+                 for k, v in params.items()}
+        return dict(count=torch.zeros((), dtype=torch.int32,
+                                      device=params['w'][0].device),
+                    mu=zeros, nu={k: [z.clone() for z in v]
+                                  for k, v in zeros.items()})
+
+    def update(self, grads, state, params):
+        """Returns (new params, new state)."""
+        b1, b2 = self.b1, self.b2
+        g = _leaves(grads)
+        norm = torch.sqrt(sum(torch.sum(torch.square(x)) for x in g))
+        keep = norm < self.max_norm
+        g = [torch.where(keep, x, x / norm * self.max_norm) for x in g]
+        mu = [(1 - b1) * x + b1 * m for x, m in zip(g, _leaves(state['mu']))]
+        nu = [(1 - b2) * torch.square(x) + b2 * v
+              for x, v in zip(g, _leaves(state['nu']))]
+        count = state['count'] + 1
+        c = count.to(g[0].dtype)
+        bc1 = 1 - torch.pow(b1, c)
+        bc2 = 1 - torch.pow(b2, c)
+        lr = self.learning_rate
+        new = [p - lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
+               for p, m, v in zip(_leaves(params), mu, nu)]
+        n_w = len(params['w'])
+        return _tree(new, n_w), dict(count=count, mu=_tree(mu, n_w),
+                                     nu=_tree(nu, n_w))
 
 
 class MetaMLPDynamicsModel:
@@ -47,8 +124,17 @@ class MetaMLPDynamicsModel:
         self.params = core.init_mlp(gen, self.obs_dim + self.act_dim,
                                     self.hidden_sizes, self.obs_dim, dtype,
                                     self.device)
+        # global-norm clipping protects the fit from occasional outlier
+        # transitions (crash states), as in the JAX package
+        self.optimizer = ClipAdam(learning_rate, max_norm=100.0)
+        self.opt_state = self.optimizer.init(self.params)
         self.normalizer = Normalizer.init(self.obs_dim, self.act_dim, dtype,
                                           self.device)
+
+        self._train = None  # dict of numpy [P, T, d]
+        self._test = None
+        self._rng = np.random.RandomState(seed + 1)
+        self._adapted_params = None  # params with a leading env axis, or None
 
     # ----------------------------------------------------------- core math
     def _forward(self, params, x):
@@ -66,7 +152,8 @@ class MetaMLPDynamicsModel:
     def inner_step_fn(self, params, obs_n, act_n, delta_n):
         """One gradient-descent step at the inner learning rate on each env's
         window. obs_n/act_n/delta_n (E, K, d); params unbatched. Returns
-        params with a leading env axis."""
+        params with a leading env axis. The params are detached: this is the
+        rollout's adaptation, with no meta-gradient (see meta_loss_fn)."""
         with torch.enable_grad():
             # one broadcast copy of the params per env (a stride-0 view); env
             # e's loss depends on its own copy alone, so the gradient of the
@@ -74,15 +161,202 @@ class MetaMLPDynamicsModel:
             leaves = self.broadcast_params(
                 {k: [p.detach() for p in params[k]] for k in ('w', 'b')},
                 obs_n.shape[0])
-            flat = leaves['w'] + leaves['b']
+            flat = _leaves(leaves)
             for p in flat:
                 p.requires_grad_(True)
             loss = self._mse(leaves, obs_n, act_n, delta_n).sum()
             grads = torch.autograd.grad(loss, flat)
         lr = self.inner_learning_rate
         new = [p.detach() - lr * g for p, g in zip(flat, grads)]
-        n_w = len(leaves['w'])
-        return {'w': new[:n_w], 'b': new[n_w:]}
+        return _tree(new, len(leaves['w']))
+
+    def meta_loss_fn(self, params, norm, obs, act, delta):
+        """obs/act/delta: (meta_bs, 2*bs, d) raw. Returns (post_loss,
+        pre_loss), means over tasks, with the inner step differentiated
+        through (second order): post_loss's graph reaches `params`, whose
+        tensors must require grad."""
+        obs_n = norm.norm_obs(obs)
+        act_n = norm.norm_act(act)
+        delta_n = norm.norm_delta(delta)
+        bs = self.batch_size
+        # per-task gradients: differentiate the summed pre-update loss with
+        # respect to a stride-0 broadcast of the params (task t's loss
+        # depends on its own copy alone), keeping the graph of the gradient
+        tasks = self.broadcast_params(params, obs.shape[0])
+        flat = _leaves(tasks)
+        pre = self._mse(tasks, obs_n[:, :bs], act_n[:, :bs], delta_n[:, :bs])
+        grads = torch.autograd.grad(pre.sum(), flat, create_graph=True)
+        lr = self.inner_learning_rate
+        adapted = _tree([p - lr * g for p, g in zip(flat, grads)],
+                        len(tasks['w']))
+        post = self._mse(adapted, obs_n[:, bs:], act_n[:, bs:],
+                         delta_n[:, bs:])
+        return post.mean(), pre.mean()
+
+    # ------------------------------------------------------------------ fit
+    def _fit_shapes(self, p_tr, p_te, t_len):
+        """(train capacity, test capacity, train steps per epoch, validation
+        steps) for p_tr / p_te aggregated paths of t_len steps."""
+        cap_tr = int(np.ceil(p_tr / PATH_CHUNK)) * PATH_CHUNK
+        cap_te = int(np.ceil(p_te / PATH_CHUNK)) * PATH_CHUNK
+        per_step = self.meta_batch_size * self.batch_size * 2
+        steps_per_epoch = _bucket_pow2(max(int(p_tr * t_len / per_step), 1))
+        steps_test = _bucket_pow2(max(int(p_te * t_len / per_step), 1))
+        return cap_tr, cap_te, steps_per_epoch, steps_test
+
+    def stage(self, data, capacity):
+        """Paths dict(obs, act, delta) of numpy [P, T, d] -> one
+        (capacity, T, obs+act+obs) f32 tensor on the device, zero-padded
+        beyond P."""
+        count, t_len = data['obs'].shape[:2]
+        dims = [data[k].shape[-1] for k in ('obs', 'act', 'delta')]
+        out = np.zeros((capacity, t_len, sum(dims)), np.float32)
+        out[:count] = np.concatenate([data['obs'], data['act'],
+                                      data['delta']], axis=-1)
+        return torch.as_tensor(out, device=self.device)
+
+    def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
+            valid_split_ratio=None, rolling_average_persitency=None,
+            verbose=False, log_tabular=False, logger=None):
+        if obs.ndim != 3 or obs.shape[2] != self.obs_dim:
+            raise ValueError(f'obs must be [paths, T, {self.obs_dim}], got '
+                             f'{obs.shape}')
+        if act.ndim != 3 or act.shape[2] != self.act_dim:
+            raise ValueError(f'act must be [paths, T, {self.act_dim}], got '
+                             f'{act.shape}')
+        obs = np.asarray(obs, np.float32)
+        act = np.asarray(act, np.float32)
+        delta = np.asarray(obs_next, np.float32) - obs
+        if valid_split_ratio is None:
+            valid_split_ratio = self.valid_split_ratio
+        if rolling_average_persitency is None:
+            rolling_average_persitency = self.rolling_average_persitency
+
+        if self.normalize_input and (compute_normalization or
+                                     self._train is None):
+            self.normalizer = Normalizer.fit(
+                *(torch.as_tensor(a, device=self.device)
+                  for a in (obs, act, delta)))
+
+        # split along the path axis, aggregate across iterations
+        n_paths = obs.shape[0]
+        idx = self._rng.permutation(n_paths)
+        split = max(int(n_paths * (1 - valid_split_ratio)), 1)
+        tr, te = idx[:split], idx[split:] if split < n_paths else idx[-1:]
+        new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
+        new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
+        if self._train is None:
+            self._train, self._test = new_tr, new_te
+        else:
+            self._train = {k: np.concatenate([self._train[k], new_tr[k]])
+                           for k in new_tr}
+            self._test = {k: np.concatenate([self._test[k], new_te[k]])
+                          for k in new_te}
+
+        p_tr = self._train['obs'].shape[0]
+        p_te = self._test['obs'].shape[0]
+        t_len = self._train['obs'].shape[1]
+        cap_tr, cap_te, steps_per_epoch, steps_test = self._fit_shapes(
+            p_tr, p_te, t_len)
+        train = self.stage(self._train, cap_tr)
+        test = self.stage(self._test, cap_te)
+
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(int(self._rng.randint(1 << 31)))
+        valid_avg = valid_avg_prev = None
+        epoch = 0
+        pre_loss = post_loss = float('nan')
+        for epoch in range(epochs):
+            (self.params, self.opt_state, post, pre,
+             valid) = self.epoch_fn(self.params, self.opt_state,
+                                    self.normalizer, train, test, p_tr, p_te,
+                                    steps_per_epoch, steps_test, generator)
+            # the epoch's one read of device values
+            post_loss, pre_loss, valid_loss = torch.stack(
+                [post, pre, valid]).tolist()
+            if valid_avg is None:
+                valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
+                    else valid_loss / 1.5
+                valid_avg_prev = 2 * valid_loss if valid_loss >= 0 \
+                    else valid_loss / 2
+            valid_avg = (rolling_average_persitency * valid_avg +
+                         (1 - rolling_average_persitency) * valid_loss)
+            if verbose and logger is not None:
+                logger.log(f'Epoch {epoch} pre {pre_loss:.5f} '
+                           f'post {post_loss:.5f} '
+                           f'valid {valid_loss:.5f} avg {valid_avg:.5f}')
+            if valid_avg_prev < valid_avg or epoch == epochs - 1:
+                break
+            valid_avg_prev = valid_avg
+        if log_tabular and logger is not None:
+            logger.logkv('Epochs', epoch)
+            logger.logkv('Pre-Loss', pre_loss)
+            logger.logkv('Post-Loss', post_loss)
+        return dict(epochs=epoch, post_loss=post_loss)
+
+    def _windows(self, data, n_valid, span, generator, window=None):
+        """meta_bs windows of 2*bs steps from staged paths data: path index
+        in [0, n_valid), offset in [bs, T - bs), rows [off - bs, off + bs),
+        drawn on the device, or window = injected (pidx, offs). Returns
+        (obs, act, delta), each (meta_bs, 2*bs, d)."""
+        if window is None:
+            mbs, bs, dev = self.meta_batch_size, self.batch_size, data.device
+            pidx = torch.randint(0, n_valid, (mbs,), generator=generator,
+                                 device=dev)
+            offs = torch.randint(bs, data.shape[1] - bs, (mbs,),
+                                 generator=generator, device=dev)
+        else:
+            pidx, offs = window
+        w = data[pidx[:, None], offs[:, None] + span]
+        return w.split([self.obs_dim, self.act_dim, self.obs_dim], dim=-1)
+
+    @torch.no_grad()
+    def epoch_fn(self, params, opt_state, norm, train, test, n_tr, n_te,
+                 steps_per_epoch, steps_test, generator, windows=None):
+        """One epoch: steps_per_epoch meta-train steps (second-order meta
+        loss, clip, Adam) on windows of `train`, then steps_test validation
+        steps (the plain pre-update loss of the new params) on windows of
+        `test`. train/test: staged paths (see `stage`), the first n_tr /
+        n_te real. windows: optionally the (pidx, offs) of every train step,
+        then of every validation step, in place of the device draws.
+        Returns (params, opt_state, post, pre, valid): the losses are 0-d
+        device tensors, means over the epoch's steps. Nothing here waits
+        for the device. Each step is labelled for torch.profiler:
+        'fit.train_step' (inside it 'fit.meta_loss', the forward with the
+        inner step; 'fit.meta_grad', the backward through it; 'fit.adam',
+        clip and Adam) and 'fit.valid_step'."""
+        bs = self.batch_size
+        span = torch.arange(-bs, bs, device=train.device)
+        n_w = len(params['w'])
+        posts, pres = [], []
+        for i in range(steps_per_epoch):
+            with record_function('fit.train_step'):
+                o, a, d = self._windows(train, n_tr, span, generator,
+                                        windows and windows[i])
+                leaves = [p.detach().requires_grad_(True)
+                          for p in _leaves(params)]
+                with torch.enable_grad():
+                    with record_function('fit.meta_loss'):
+                        post, pre = self.meta_loss_fn(_tree(leaves, n_w),
+                                                      norm, o, a, d)
+                    with record_function('fit.meta_grad'):
+                        grads = torch.autograd.grad(post, leaves)
+                with record_function('fit.adam'):
+                    params, opt_state = self.optimizer.update(
+                        _tree(grads, n_w), opt_state, params)
+                posts.append(post.detach())
+                pres.append(pre.detach())
+        valids = []
+        for i in range(steps_test):
+            with record_function('fit.valid_step'):
+                o, a, d = self._windows(
+                    test, n_te, span, generator,
+                    windows and windows[steps_per_epoch + i])
+                valids.append(self._mse(params, norm.norm_obs(o),
+                                        norm.norm_act(a),
+                                        norm.norm_delta(d)).mean())
+        return (params, opt_state, torch.stack(posts).mean(),
+                torch.stack(pres).mean(), torch.stack(valids).mean())
 
     # ------------------------------------------------------------- adapt
     def adapt_fn(self, params, norm, obs, act, obs_next):
@@ -91,6 +365,20 @@ class MetaMLPDynamicsModel:
         delta = obs_next - obs
         return self.inner_step_fn(params, norm.norm_obs(obs),
                                   norm.norm_act(act), norm.norm_delta(delta))
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def adapt(self, obs, act, obs_next):
+        """Host API: lists/arrays of per-env windows (n_env of (K, d))."""
+        obs, act, obs_next = (self._tensor(np.stack(a))
+                              for a in (obs, act, obs_next))
+        self._adapted_params = self.adapt_fn(self.params, self.normalizer,
+                                             obs, act, obs_next)
+
+    def switch_to_pre_adapt(self):
+        self._adapted_params = None
 
     # ------------------------------------------------------------- predict
     def predict_adapted_fn(self, adapted_params, norm, obs, act):
@@ -112,8 +400,87 @@ class MetaMLPDynamicsModel:
         return self.predict_adapted_fn(batched, norm, obs[None],
                                        act[None])[0]
 
+    @torch.no_grad()
+    def predict(self, obs, act):
+        """Host API: next observations (N, obs_dim) as numpy; after `adapt`
+        the rows split evenly over the adapted envs, in order."""
+        obs, act = self._tensor(obs), self._tensor(act)
+        if self._adapted_params is not None:
+            n_env = self._adapted_params['w'][0].shape[0]
+            per = obs.shape[0] // n_env
+            out = self.predict_adapted_fn(
+                self._adapted_params, self.normalizer,
+                obs.reshape(n_env, per, -1), act.reshape(n_env, per, -1))
+            return out.reshape(obs.shape[0], -1).cpu().numpy()
+        return self.predict_fn(self.params, self.normalizer, obs,
+                               act).cpu().numpy()
+
     def broadcast_params(self, params, n_env):
         """params viewed with a leading env axis of n_env (stride 0, no
         copy): the pre-update parameters for every env."""
         return {k: [p.unsqueeze(0).expand((n_env,) + tuple(p.shape))
                     for p in params[k]] for k in params}
+
+    @property
+    def recurrent(self):
+        return False
+
+    @property
+    def adapted(self):
+        return self._adapted_params is not None
+
+    # ------------------------------------------------------------- state
+    def state_dict(self, include_data=False):
+        """numpy copies of params, optimizer state and normalizer; with
+        include_data also the dataset buffers and the split/shuffle RNG
+        (the train/valid composition of every future fit depends on it),
+        for full-fidelity resume."""
+        def host(tree):
+            return {k: [p.detach().cpu().numpy() for p in v]
+                    for k, v in tree.items()}
+        opt = self.opt_state
+        sd = dict(params=host(self.params),
+                  opt_state=dict(count=opt['count'].cpu().numpy(),
+                                 mu=host(opt['mu']), nu=host(opt['nu'])),
+                  normalizer={f.name: getattr(self.normalizer,
+                                              f.name).cpu().numpy()
+                              for f in fields(Normalizer)})
+        if include_data:
+            sd.update(train=self._train, test=self._test,
+                      rng_state=self._rng.get_state())
+        return sd
+
+    def load_state_dict(self, sd):
+        dev = self.device
+        self.params = core.params_from_numpy(sd['params'], dev, self.dtype)
+        opt = sd['opt_state']
+        self.opt_state = dict(
+            count=torch.tensor(np.asarray(opt['count']),
+                                  dtype=torch.int32, device=dev),
+            mu=core.params_from_numpy(opt['mu'], dev, self.dtype),
+            nu=core.params_from_numpy(opt['nu'], dev, self.dtype))
+        self.normalizer = normalizer_from_numpy(sd['normalizer'], dev,
+                                                self.dtype)
+        self._train = sd.get('train')
+        self._test = sd.get('test')
+        if sd.get('rng_state') is not None:
+            self._rng.set_state(sd['rng_state'])
+
+
+def meta_state_from_numpy(sd):
+    """The JAX package's MetaMLPDynamicsModel.state_dict(...) (after
+    jax.device_get) in the port's state_dict layout, for load_state_dict:
+    optax's chain state (EmptyState, (ScaleByAdamState(count, mu, nu),
+    EmptyState)) becomes dict(count, mu, nu), the normalizer a dict of its
+    six fields; params, dataset buffers and RNG state carry over as they
+    are."""
+    _, (adam, _) = sd['opt_state']
+
+    def tree(t):
+        return {k: [np.asarray(a) for a in t[k]] for k in ('w', 'b')}
+    norm = sd['normalizer']
+    return dict(sd, params=tree(sd['params']),
+                opt_state=dict(count=np.asarray(adam.count), mu=tree(adam.mu),
+                               nu=tree(adam.nu)),
+                normalizer={f.name: np.asarray(getattr(norm, f.name))
+                            for f in fields(Normalizer)})

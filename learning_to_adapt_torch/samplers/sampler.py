@@ -1,7 +1,6 @@
 """Sampler (samplers/sampler.py): collects `num_rollouts` paths of
 `max_path_length` steps per call, all envs batched on one device (every
-env of the batch steps at once). `obtain_samples(log=True)` needs the
-logger of the trainer slice and raises until that is ported.
+env of the batch steps at once).
 """
 import time
 
@@ -10,6 +9,7 @@ import torch
 
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.samplers.rollout import make_rollout_fn
+from learning_to_adapt_torch.utils import logging as logger
 
 
 class Sampler:
@@ -40,9 +40,6 @@ class Sampler:
 
     def obtain_samples(self, log=False, log_prefix='', random=False):
         """Returns a dict of numpy arrays [num_rollouts, T, ...]."""
-        if log:
-            raise NotImplementedError('sampler logging comes with the '
-                                      'trainer slice of the port')
         t0 = time.time()
         model = self.policy.dynamics_model
         fn = self._rollout_fn(random)
@@ -53,7 +50,29 @@ class Sampler:
         self.last_seconds = time.time() - t0
         self._episode_idx += 1
         self.total_timesteps_sampled += self.total_samples
+        if log:
+            logger.logkv(log_prefix + 'TimeStepsCtr',
+                         self.total_timesteps_sampled)
+            logger.logkv(log_prefix + 'PolicyExecTime', self.last_seconds)
+            logger.logkv(log_prefix + 'EnvExecTime', 0.0)  # fused in a step
         return paths
+
+    def update_tasks(self):
+        pass  # tasks are resampled inside env.reset (task-as-data)
+
+    # ---- resume fidelity: the generator and the episode counter determine
+    # the task/reset sequence, so a resumed run continues the exact stream a
+    # fresh run would have produced (utils/checkpoint.py)
+    def state_dict(self):
+        return dict(generator=self._generator.get_state().numpy(),
+                    episode_idx=self._episode_idx,
+                    total_timesteps_sampled=self.total_timesteps_sampled)
+
+    def load_state_dict(self, sd):
+        self._generator.set_state(torch.from_numpy(
+            np.array(sd['generator'], dtype=np.uint8)))
+        self._episode_idx = int(sd['episode_idx'])
+        self.total_timesteps_sampled = int(sd['total_timesteps_sampled'])
 
 
 class ModelSampleProcessor:
@@ -65,9 +84,6 @@ class ModelSampleProcessor:
         self.recurrent = recurrent
 
     def process_samples(self, paths, log=False, log_prefix=''):
-        if log:
-            raise NotImplementedError('sample logging comes with the '
-                                      'trainer slice of the port')
         obs = paths['observations']
         nxt = paths['next_observations']
         act = paths['actions']
@@ -76,6 +92,11 @@ class ModelSampleProcessor:
             raise ValueError(f'observations must be [paths, T, d], got '
                              f'{obs.shape}')
         ret = rew.sum(axis=1)
+        if log:
+            logger.logkv(log_prefix + 'AverageReturn', float(ret.mean()))
+            logger.logkv(log_prefix + 'MaxReturn', float(ret.max()))
+            logger.logkv(log_prefix + 'MinReturn', float(ret.min()))
+            logger.logkv(log_prefix + 'StdReturn', float(ret.std()))
         if self.recurrent:
             return dict(observations=obs, next_observations=nxt, actions=act,
                         rewards=rew, returns=ret)

@@ -26,6 +26,7 @@ from learning_to_adapt_torch.samplers import (
     ModelSampleProcessor as PortProcessor, Sampler as PortSampler)
 from learning_to_adapt_torch.samplers.rollout import (
     make_rollout_fn as port_rollout_fn)
+from learning_to_adapt_torch.utils import logging as port_log
 from learning_to_adapt_tpu import envs as jax_envs
 from learning_to_adapt_tpu.models import MetaMLPDynamicsModel as JaxMetaMLP
 from learning_to_adapt_tpu.models.normalizer import Normalizer as JaxNorm
@@ -161,9 +162,10 @@ def test_rollout_step_matches_jax():
                                   np.asarray(j_hact)[safe])
 
 
-def test_sampler_small_run_shapes_and_chain():
+def test_sampler_small_run_shapes_and_chain(tmp_path):
     """2 envs x 30 steps, 8 candidates x horizon 3, hidden (32,), adapt
-    window 4: random then policy sampling, as tests/test_e2e.py checks."""
+    window 4: random then policy sampling, as tests/test_e2e.py checks, and
+    the keys that sampler and sample processor log."""
     env = port_envs.normalize(port_envs.HalfCheetahEnv(
         task='cripple', reset_every_episode=True, device='cpu'))
     model = PortMetaMLP('dyn', env, hidden_sizes=(32,), batch_size=4,
@@ -191,8 +193,23 @@ def test_sampler_small_run_shapes_and_chain():
     np.testing.assert_allclose(samples['returns'], paths['rewards'].sum(1))
     flat = PortProcessor(recurrent=False).process_samples(paths)
     assert flat['observations'].shape == (60, 20)
-    with pytest.raises(NotImplementedError):
-        sampler.obtain_samples(log=True)
+    port_log.configure(dir=str(tmp_path), format_strs=[])
+    paths = sampler.obtain_samples(log=True, log_prefix='EnvSampler-')
+    PortProcessor(recurrent=True).process_samples(paths, log=True,
+                                                  log_prefix='EnvTrajs-')
+    kvs = port_log.dumpkvs()
+    assert list(kvs) == [
+        'EnvSampler-TimeStepsCtr', 'EnvSampler-PolicyExecTime',
+        'EnvSampler-EnvExecTime', 'EnvTrajs-AverageReturn',
+        'EnvTrajs-MaxReturn', 'EnvTrajs-MinReturn', 'EnvTrajs-StdReturn']
+    assert kvs['EnvSampler-TimeStepsCtr'] == 3 * 2 * 30
+    assert kvs['EnvSampler-PolicyExecTime'] == sampler.last_seconds > 0
+    assert kvs['EnvSampler-EnvExecTime'] == 0.0
+    ret = paths['rewards'].sum(1)
+    assert (kvs['EnvTrajs-AverageReturn'], kvs['EnvTrajs-MaxReturn'],
+            kvs['EnvTrajs-MinReturn'], kvs['EnvTrajs-StdReturn']) == (
+        float(ret.mean()), float(ret.max()), float(ret.min()),
+        float(ret.std()))
 
 
 def test_port_imports_no_jax():
