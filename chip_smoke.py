@@ -51,8 +51,31 @@ Phases, each of which raises (exit code != 0) on failure:
      epoch under torch.profiler (device time, device activities and host
      time per step, busy share), and one epoch watched for host waits as
      in phase 5, failing on any wait once per train step or more;
-  8. print the card line again, one JSON line describing every kernel,
-     then the contract line {"ok": true, "device": {...}} last.
+  8. MB-MPC: run_mb_mpc.run_experiment at its full config (10 envs x 100
+     steps, 2000 candidates x horizon 20, a (512,512) ReLU model, batch
+     128, 100 epochs a fit) with --task cripple, 3 iterations and a resume
+     to 4, checked as in phase 6 against results/mb_mpc_halfcheetah_tpu_r3.csv;
+     per policy iteration 20 fused-MLP launches a step over 20,000 rows
+     (2000), one weight pack for the whole call, 1 Jacobi launch per
+     physics step, none from the fit; then three policy sampling calls:
+     one of 100 steps timed, and two of 30 steps, profiled (device time
+     per step, busy share) and watched for host waits as in phase 5. The
+     kernel phase also holds and times the MLP kernel at this shape (1 x
+     20,000 rows, 26->512->512->20, beside a bf16 addmm chain);
+  9. ReBAL: run_rebal.run_experiment (5 envs, 500 candidates x horizon 10,
+     an LSTM (256,), batch 10, 100-step TBPTT chunks, 50 epochs a fit) with
+     paths cut 1000 -> 100, --task cripple, 3 iterations and a resume,
+     checked against results/rebal_halfcheetah_tpu_r3.csv; per policy
+     iteration no fused-MLP launch or pack (the recurrent planner runs f32
+     cell equations), 1 Jacobi launch per physics step; three policy
+     sampling calls as in phase 8;
+ 10. time the MB-MPC fit's epoch on 15,300 train rows (its dataset at
+     iteration 16: 128 steps an epoch) and 11. the ReBAL fit's on 68 train
+     paths x 1000 steps (8 steps of 10 TBPTT chunks an epoch), each as in
+     phase 7;
+ 12. print the card line again, one JSON line describing every kernel
+     (with its launches on each algorithm's path), then the contract line
+     {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package. Without a card it exits 2
 before printing any result.
@@ -74,6 +97,14 @@ F32_FLOP_PER_S = 67e12
 
 MLP_DIMS = (26, 512, 512, 512, 20)    # obs 20 + act 6 -> 20
 N_ENVS, N_CANDIDATES, HORIZON = 5, 500, 10
+# MB-MPC (run_scripts/run_mb_mpc.py): 10 envs x 2000 candidates x horizon
+# 20 through a (512, 512) model, one weight set for every row
+MB_DIMS = (26, 512, 512, 20)
+MB_ENVS, MB_CANDIDATES, MB_HORIZON = 10, 2000, 20
+# the fits' dataset sizes at iteration 16 (17 fits): MB-MPC 900 train + 100
+# valid rows a fit; ReBAL 4 train + 1 valid paths of 1000 steps a fit
+MB_FIT_ROWS, MB_FIT_VALID_ROWS = 17 * 900, 17 * 100
+RB_FIT_PATHS, RB_FIT_VALID_PATHS = 17 * 4, 17 * 1
 ADAPT_BATCH, INNER_LR = 16, 1e-3
 PATH_LEN = 100
 PROFILE_LEN = 30
@@ -82,6 +113,8 @@ FIT_PATHS, FIT_VALID_PATHS, FIT_T = 64, 16, 1000
 FIT_TIMED_EPOCHS = 3
 REPO = os.path.dirname(os.path.abspath(__file__))
 HEADER_CSV = os.path.join(REPO, 'results', 'grbal_halfcheetah_tpu_r3.csv')
+MB_HEADER_CSV = os.path.join(REPO, 'results', 'mb_mpc_halfcheetah_tpu_r3.csv')
+RB_HEADER_CSV = os.path.join(REPO, 'results', 'rebal_halfcheetah_tpu_r3.csv')
 JACOBI_SWEEPS = 60                    # 2 * OptionSpec.iterations
 JACOBI_WIDE_ENVS = 512                # bench.py bench_saturated's env count
 
@@ -251,6 +284,65 @@ def check_fused_mlp(dev):
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 ms_cold=ms_cold, library_device_ms=library_device_ms,
                 device_ms=device_ms(kernel), floor_ms=None, ms_512=None)
+
+
+def check_fused_mlp_mb_mpc(dev):
+    """The kernel at MB-MPC's planner shape: 1 group x 20,000 rows,
+    26->512->512->20, one weight set packed once; held against the plain
+    version and timed beside one bf16 matmul chain (addmm) at that shape.
+    Returns the keys it adds to the fused_mlp entry."""
+    import torch
+    from learning_to_adapt_torch.ops import fused_mlp as fm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    r = MB_ENVS * MB_CANDIDATES
+    x = torch.randn((1, r, MB_DIMS[0]), generator=gen, device=dev)
+    ws, bs = [], []
+    for k, n in zip(MB_DIMS[:-1], MB_DIMS[1:]):
+        lim = (6.0 / (k + n)) ** 0.5
+        ws.append((torch.rand((1, k, n), generator=gen, device=dev) * 2 - 1)
+                  * lim)
+        bs.append(0.1 * torch.randn((1, n), generator=gen, device=dev))
+    packed = fm.pack_weights(ws, bs)
+    ref = fm.fused_mlp_plain(x, ws, bs, 'relu')
+    out = fm.fused_mlp_cuda(x, packed, None, 'relu')
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    log(f'fused_mlp MB-MPC shape {tuple(x.shape)} -> {tuple(out.shape)}, '
+        f'widths {MB_DIMS}, one packed set: max_abs_err {err:.3e} '
+        f'(tolerance {MLP_TOL}, max|ref| {float(ref.abs().max()):.3f})')
+    torch.testing.assert_close(out, ref, **MLP_TOL)
+    w16 = [w[0].to(torch.bfloat16) for w in ws]     # cast once, not timed
+    b16 = [b[0].to(torch.bfloat16) for b in bs]
+
+    def library():
+        h = x[0].to(torch.bfloat16)
+        for i, (w, b) in enumerate(zip(w16, b16)):
+            h = torch.addmm(b, h, w)
+            if i < len(w16) - 1:
+                h = torch.relu(h)
+        return h.float()
+
+    def kernel():
+        return fm.fused_mlp_cuda(x, packed, None, 'relu')
+    ms = cuda_ms(kernel)
+    dev_ms = device_ms(kernel)
+    plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, ws, bs, 'relu'))
+    library_ms = cuda_ms(library)
+    library_device_ms = device_ms(library)
+    macs = sum(k * n for k, n in zip(MB_DIMS[:-1], MB_DIMS[1:]))
+    n_bytes = (4 * (x.numel() + r * MB_DIMS[-1] +
+                    sum(b.numel() for b in bs)) +
+               2 * sum(w.numel() for w in ws))
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * r * macs, BF16_FLOP_PER_S)
+    log(f'fused_mlp per launch at the MB-MPC shape: kernel {ms:.4f} ms '
+        f'(device {dev_ms:.4f} ms); plain {plain_ms:.4f} ms; bf16 addmm '
+        f'chain {library_ms:.4f} ms (device {library_device_ms:.4f} ms); '
+        f'bound {b_ms:.4f} ms ({b_by}: {2.0 * r * macs / 1e9:.2f} GFLOP)')
+    return dict(mb_mpc_max_abs_err=err, mb_mpc_ms=ms, mb_mpc_device_ms=dev_ms,
+                mb_mpc_plain_ms=plain_ms, mb_mpc_bound_ms=b_ms,
+                mb_mpc_library_ms=library_ms,
+                mb_mpc_library_device_ms=library_device_ms)
 
 
 def contact_systems(dev):
@@ -543,10 +635,12 @@ def zero_counters():
 @contextlib.contextmanager
 def counted_calls(record):
     """Appends (what, launches made inside the call) to record for every
-    Sampler.obtain_samples and MetaMLPDynamicsModel.fit call."""
-    from learning_to_adapt_torch.models import MetaMLPDynamicsModel
+    Sampler.obtain_samples call and every fit of the three models."""
+    from learning_to_adapt_torch.models import (
+        MetaMLPDynamicsModel, MLPDynamicsModel, RNNDynamicsModel)
     from learning_to_adapt_torch.samplers import Sampler
-    originals = (Sampler.obtain_samples, MetaMLPDynamicsModel.fit)
+    fits = (MetaMLPDynamicsModel, MLPDynamicsModel, RNNDynamicsModel)
+    originals = (Sampler.obtain_samples,) + tuple(c.fit for c in fits)
 
     def counted(what, fn):
         def wrapped(*args, **kwargs):
@@ -560,23 +654,25 @@ def counted_calls(record):
             return out
         return wrapped
     Sampler.obtain_samples = counted('sample', originals[0])
-    MetaMLPDynamicsModel.fit = counted('fit', originals[1])
+    for c, fit in zip(fits, originals[1:]):
+        c.fit = counted('fit', fit)
     try:
         yield record
     finally:
-        Sampler.obtain_samples, MetaMLPDynamicsModel.fit = originals
+        Sampler.obtain_samples = originals[0]
+        for c, fit in zip(fits, originals[1:]):
+            c.fit = fit
 
 
-def run_trainer(cfg, record):
-    """run_experiment with the counts set to 0 just before it; its log
-    (100 epoch lines a fit) is kept and printed only on failure."""
-    from learning_to_adapt_torch import run_grbal
+def run_trainer(entry, cfg, record):
+    """entry.run_experiment with the counts set to 0 just before it; its
+    log (an epoch line each epoch) is kept and printed only on failure."""
     from learning_to_adapt_torch.utils import logging as logger
     out = io.StringIO()
     zero_counters()
     try:
         with counted_calls(record), contextlib.redirect_stdout(out):
-            trainer = run_grbal.run_experiment(cfg)
+            trainer = entry.run_experiment(cfg)
     except BaseException:
         print(out.getvalue()[-8000:], file=sys.stderr)
         raise
@@ -593,14 +689,11 @@ def read_progress(exp_dir):
         return header, list(csv.DictReader(f))
 
 
-def check_trainer_launches(frame_skip, record, total, resume_record,
+def check_trainer_launches(policy_itr, record, total, resume_record,
                            resume_total):
-    """Per call of the trainer runs: 10 fused-MLP launches and 1 pack per
-    policy env step, 1 Jacobi launch per physics step in every sampling
-    call, nothing from the fit, and no launch outside those calls. Returns
-    the launches of one policy iteration."""
-    policy_itr = dict(fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
-                      jacobi_solve=frame_skip * PATH_LEN)
+    """Per call of the trainer runs: policy_itr's launches in every policy
+    sampling call, only the Jacobi launches in the random one, nothing
+    from the fit, and no launch outside those calls."""
     want = {'random': dict(policy_itr, fused_mlp=0, pack=0),
             'policy': policy_itr,
             'fit': dict(fused_mlp=0, pack=0, jacobi_solve=0)}
@@ -619,49 +712,46 @@ def check_trainer_launches(frame_skip, record, total, resume_record,
         if tot != summed:
             raise AssertionError(f'{name}: launches outside sampling and '
                                  f'fit: {tot} != {summed}')
-    return policy_itr
 
 
-def trainer_phase(dev, card):
-    """Phase 6: the GrBAL meta-training loop through the port's entry
-    point, then a resume. Returns (per policy iteration launches, whole-run
-    launches, the trained model)."""
+def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr):
+    """The training loop through a port entry point in a temporary
+    directory (cfg: TRAIN_ITR iterations), then a resume to one more.
+    policy_itr(frame_skip) gives the launches of one policy sampling call.
+    Returns (per policy iteration launches, whole-run launches, the
+    trainer)."""
     import math
     import pickle
-    from learning_to_adapt_torch import run_grbal
     from learning_to_adapt_torch.envs import HalfCheetahEnv
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            cfg = dict(run_grbal.config, task='cripple', seed=0,
-                       device=str(dev), exp_name='chip_smoke',
-                       n_itr=TRAIN_ITR, max_path_length=PATH_LEN,
-                       resume=False, profile=False)
             t0 = time.time()
             record = []
-            trainer, total = run_trainer(cfg, record)
+            trainer, total = run_trainer(entry, cfg, record)
             run_s = time.time() - t0
-            exp_dir = run_grbal.experiment_dir(cfg)
+            exp_dir = entry.experiment_dir(cfg)
             header, rows = read_progress(exp_dir)
             with open(os.path.join(exp_dir, 'params.pkl'), 'rb') as f:
                 snap = pickle.load(f)
             t0 = time.time()
             resume_record = []
             resumed, resume_total = run_trainer(
-                dict(cfg, n_itr=TRAIN_ITR + 1, resume=True), resume_record)
+                entry, dict(cfg, n_itr=TRAIN_ITR + 1, resume=True),
+                resume_record)
             resume_s = time.time() - t0
             _, resumed_rows = read_progress(exp_dir)
         finally:
             os.chdir(cwd)
 
-    with open(HEADER_CSV) as f:
+    with open(header_csv) as f:
         want_header = f.readline()
     if header != want_header:
         raise AssertionError(f'progress.csv header {header!r} != the JAX '
                              f'run\'s {want_header!r}')
     for r in rows + resumed_rows:
-        for k in ('Pre-Loss', 'Post-Loss', 'EnvTrajs-AverageReturn'):
+        for k in loss_keys + ('EnvTrajs-AverageReturn',):
             if not math.isfinite(float(r[k])):
                 raise AssertionError(f'itr {r["Itr"]}: {k} = {r[k]}')
     if [int(r['Itr']) for r in rows] != list(range(TRAIN_ITR)):
@@ -677,72 +767,146 @@ def trainer_phase(dev, card):
         raise AssertionError(f'resume started at {resumed.start_itr}, '
                              f'wrote itrs {[r["Itr"] for r in resumed_rows]}')
 
-    policy_itr = check_trainer_launches(
-        trainer.env.wrapped_env.frame_skip, record, total, resume_record,
-        resume_total)
-    log(f'trainer (run_grbal.run_experiment, --task cripple, seed 0, '
-        f'{cfg["num_rollouts"]} envs x {PATH_LEN} steps, {TRAIN_ITR} itrs, '
-        f'{cfg["dynamic_model_epochs"]} epochs max) on {card}: '
-        f'{run_s:.1f} s; resume to itr {TRAIN_ITR} {resume_s:.1f} s')
+    per_itr = policy_itr(trainer.env.wrapped_env.frame_skip)
+    check_trainer_launches(per_itr, record, total, resume_record,
+                           resume_total)
+    log(f'trainer ({entry.module}.run_experiment, --task cripple, seed 0, '
+        f'{cfg["num_rollouts"]} envs x {cfg["max_path_length"]} steps, '
+        f'{TRAIN_ITR} itrs, {cfg["dynamic_model_epochs"]} epochs max) on '
+        f'{card}: {run_s:.1f} s; resume to itr {TRAIN_ITR} {resume_s:.1f} s')
     for r in rows + resumed_rows:
-        log(f'  itr {r["Itr"]}: Time-EnvSampling {float(r["Time-EnvSampling"]):.3f} s, '
-            f'Time-ModelFit {float(r["Time-ModelFit"]):.3f} s, Epochs '
-            f'{r["Epochs"]}, Pre-Loss {float(r["Pre-Loss"]):.5f}, Post-Loss '
-            f'{float(r["Post-Loss"]):.5f}, AverageReturn '
+        losses = ', '.join(f'{k} {float(r[k]):.5f}' for k in loss_keys)
+        log(f'  itr {r["Itr"]}: Time-EnvSampling '
+            f'{float(r["Time-EnvSampling"]):.3f} s, Time-ModelFit '
+            f'{float(r["Time-ModelFit"]):.3f} s, Epochs {r["Epochs"]}, '
+            f'{losses}, AverageReturn '
             f'{float(r["EnvTrajs-AverageReturn"]):.2f}')
     log(f'trainer launches per call: {json.dumps(record)}; whole run '
         f'{json.dumps(total)}; resumed run {json.dumps(resume_total)}')
-    return policy_itr, total, trainer.dynamics_model
+    return per_itr, total, resumed
+
+
+def grbal_trainer_phase(dev, card):
+    """Phase 6: the GrBAL meta-training loop through run_grbal, 10
+    fused-MLP launches and 1 pack per policy env step."""
+    from learning_to_adapt_torch import run_grbal
+    cfg = dict(run_grbal.config, task='cripple', seed=0, device=str(dev),
+               exp_name='chip_smoke', n_itr=TRAIN_ITR,
+               max_path_length=PATH_LEN, resume=False, profile=False)
+    return trainer_phase(
+        dev, card, run_grbal.ENTRY, cfg, HEADER_CSV,
+        ('Pre-Loss', 'Post-Loss'),
+        lambda fs: dict(fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
+                        jacobi_solve=fs * PATH_LEN))
+
+
+def mb_mpc_trainer_phase(dev, card):
+    """Phase 8: MB-MPC through run_mb_mpc at its full config (100-step
+    paths are canonical): per policy sampling call 20 fused-MLP launches a
+    step over 10 x 2000 rows, one pack for the whole call; then a policy
+    sampling call watched for host waits."""
+    from learning_to_adapt_torch import run_mb_mpc
+    cfg = dict(run_mb_mpc.config, task='cripple', seed=0, device=str(dev),
+               exp_name='chip_smoke', n_itr=TRAIN_ITR, resume=False,
+               profile=False)
+    t_len = cfg['max_path_length']
+    per_itr, total, trainer = trainer_phase(
+        dev, card, run_mb_mpc.ENTRY, cfg, MB_HEADER_CSV,
+        ('TrainLoss', 'ValidLoss'),
+        lambda fs: dict(fused_mlp=MB_HORIZON * t_len, pack=1,
+                        jacobi_solve=fs * t_len))
+    sampling_profile(trainer.sampler, 'MB-MPC', card)
+    return per_itr, total, trainer
+
+
+def rebal_trainer_phase(dev, card):
+    """Phase 9: ReBAL through run_rebal, paths cut 1000 -> 100 (one
+    100-step TBPTT chunk): no fused-MLP launch (the LSTM planner runs f32
+    cell equations); then a policy sampling call watched for host
+    waits."""
+    from learning_to_adapt_torch import run_rebal
+    cfg = dict(run_rebal.config, task='cripple', seed=0, device=str(dev),
+               exp_name='chip_smoke', n_itr=TRAIN_ITR,
+               max_path_length=PATH_LEN, resume=False, profile=False)
+    per_itr, total, trainer = trainer_phase(
+        dev, card, run_rebal.ENTRY, cfg, RB_HEADER_CSV, ('TrainLoss',),
+        lambda fs: dict(fused_mlp=0, pack=0, jacobi_solve=fs * PATH_LEN))
+    sampling_profile(trainer.sampler, 'ReBAL', card)
+    return per_itr, total, trainer
+
+
+def sampling_profile(sampler, what, card):
+    """More policy sampling calls of a trained run's model: one of the
+    run's own length, timed (env-steps/s), and, after a warm-up, two of
+    PROFILE_LEN steps (more than the 17 waits a call makes once, in its
+    reset and its copy to the host; the profiler's record of a longer call
+    takes minutes to read): one under torch.profiler (device time and
+    activities per step, busy share, device time per launch of both
+    kernels), one watched for host waits as in phase 5."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from learning_to_adapt_torch.samplers import Sampler
+    m, t_len = sampler.num_rollouts, sampler.max_path_length
+    sampler.obtain_samples()
+    wall = sampler.last_seconds
+    n = PROFILE_LEN
+    short = Sampler(sampler.env, sampler.policy, m, n, seed=1,
+                    device=sampler.device)
+    short.obtain_samples()                          # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        short.obtain_samples()
+    prof_s = short.last_seconds
+    on_device = [e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith('rollout.')
+                 and not getattr(e, 'is_user_annotation', False)]
+    device_us = sum(e.time_range.elapsed_us() for e in on_device)
+    per_kernel = {}
+    for kernel in ('fused_mlp_kernel', 'jacobi_kernel'):
+        runs = [e.time_range.elapsed_us() for e in on_device
+                if kernel in e.name]
+        per_kernel[kernel] = dict(
+            launches=len(runs),
+            device_ms_per_launch=round(sum(runs) / max(len(runs), 1) / 1e3,
+                                       4))
+    device_ms_step = device_us / 1e3 / n
+    log(f'{what} policy sampling, {m}x{t_len} steps on {card}: '
+        f'{m * t_len / wall:.1f} env-steps/s ({wall * 1e3 / t_len:.2f} '
+        f'ms/step); profile of {m}x{n} steps: '
+        f'{prof_s * 1e3 / n:.2f} ms/step profiled, device time '
+        f'{device_ms_step:.3f} ms/step, busy share '
+        f'{device_ms_step * t_len / 1e3 / wall:.3f} of the unprofiled wall; '
+        f'{len(on_device) / n:.0f} device activities/step; '
+        'kernels ' + json.dumps(per_kernel))
+    watch_host_syncs(short.obtain_samples, n,
+                     f'one {n}-step {what} policy sampling call')
 
 
 def fit_data(model, n_paths, gen):
     """n_paths staged paths of FIT_T steps (obs, act, delta), for timing
-    only: obs and delta Gaussian around the model normalizer's statistics
-    (those of the sampled paths), actions uniform in [-1, 1]; zero-padded
-    to the fit's path capacity, as fit stages them."""
+    only (gauss_rows, around the statistics of the sampled paths),
+    zero-padded to the fit's path capacity, as fit stages them."""
     import torch
     from learning_to_adapt_torch.models.meta_mlp import PATH_CHUNK
-    norm, dev = model.normalizer, model.device
     cap = -(-n_paths // PATH_CHUNK) * PATH_CHUNK
     data = torch.zeros((cap, FIT_T, 2 * model.obs_dim + model.act_dim),
-                       device=dev)
-
-    def gauss(mean, std):
-        return mean + std * torch.randn((n_paths, FIT_T, mean.shape[0]),
-                                        generator=gen, device=dev)
-    data[:n_paths] = torch.cat([
-        gauss(norm.obs_mean, norm.obs_std),
-        2 * torch.rand((n_paths, FIT_T, model.act_dim), generator=gen,
-                       device=dev) - 1,
-        gauss(norm.delta_mean, norm.delta_std)], dim=-1)
+                       device=model.device)
+    data[:n_paths] = gauss_rows(model.normalizer, (n_paths, FIT_T), gen)
     return data
 
 
-def fit_phase(model, card):
-    """Phase 7: the meta fit's epoch at full width on a dataset of the size
-    the canonical run holds by iteration 16."""
+def time_fit_epochs(epoch, steps, what, card):
+    """Times a fit's epoch: one warm-up and FIT_TIMED_EPOCHS timed epochs
+    (CUDA events, host clock), one epoch under torch.profiler (device time
+    and activities per train step, busy share, host time of each 'fit.*'
+    label), and one epoch watched for host waits, failing on a wait once
+    per train step or more. epoch() runs one epoch and reads its losses,
+    as the fit does; steps: its train steps."""
     import math
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator(device=model.device)
-    gen.manual_seed(7)
-    train = fit_data(model, FIT_PATHS, gen)
-    test = fit_data(model, FIT_VALID_PATHS, gen)
-    _, _, steps, steps_test = model._fit_shapes(FIT_PATHS, FIT_VALID_PATHS,
-                                                FIT_T)
-    if (steps, steps_test) != (256, 64):
-        raise AssertionError(f'steps per epoch {steps}, {steps_test}')
-    state = dict(params=model.params, opt_state=model.opt_state)
-
-    def epoch():
-        """One epoch and its one read of the losses, as fit runs it."""
-        (state['params'], state['opt_state'], post, pre,
-         valid) = model.epoch_fn(state['params'], state['opt_state'],
-                                 model.normalizer, train, test, FIT_PATHS,
-                                 FIT_VALID_PATHS, steps, steps_test, gen)
-        return torch.stack([post, pre, valid]).tolist()
-
     t0 = time.time()
     losses = epoch()                                 # warm-up
     warm_s = time.time() - t0
@@ -786,12 +950,10 @@ def fit_phase(model, card):
         raise AssertionError(f'{n_train} labelled train steps != {steps}')
     ms_step = sum(events) / len(events) / steps
     s_epoch = sum(walls) / len(walls)
-    log(f'fit at {FIT_PATHS} train x {FIT_T} steps ({steps} meta-train '
-        f'steps + {steps_test} valid steps an epoch; data drawn for timing '
-        f'only) on {card}: warm-up epoch {warm_s:.3f} s; epochs '
+    log(f'{what} on {card}: warm-up epoch {warm_s:.3f} s; epochs '
         f'{[round(w, 3) for w in walls]} s, CUDA events '
         f'{[round(e, 1) for e in events]} ms = {ms_step:.3f} ms per '
-        f'meta-train step (valid steps included); {s_epoch:.3f} s per epoch')
+        f'train step (validation included); {s_epoch:.3f} s per epoch')
     log(f'fit profile (one epoch): wall {prof_s:.3f} s profiled; device time '
         f'{device_us / 1e3 / steps:.4f} ms per train step (valid included), '
         f'{len(on_device) / steps:.0f} device activities per train step; busy '
@@ -806,8 +968,122 @@ def fit_phase(model, card):
     log('fit profile top device activities (ms per train step): ' +
         json.dumps({k: round(us / 1e3 / steps, 4) for k, us in sorted(
             top.items(), key=lambda kv: -kv[1])[:8]}))
-    watch_host_syncs(epoch, steps,
-                     f'one fit epoch of {steps} meta-train steps')
+    watch_host_syncs(epoch, steps, f'one fit epoch of {steps} train steps')
+
+
+def fit_phase(model, card):
+    """Phase 7: the meta fit's epoch at full width on a dataset of the size
+    the canonical run holds by iteration 16."""
+    import torch
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(7)
+    train = fit_data(model, FIT_PATHS, gen)
+    test = fit_data(model, FIT_VALID_PATHS, gen)
+    _, _, steps, steps_test = model._fit_shapes(FIT_PATHS, FIT_VALID_PATHS,
+                                                FIT_T)
+    if (steps, steps_test) != (256, 64):
+        raise AssertionError(f'steps per epoch {steps}, {steps_test}')
+    state = dict(params=model.params, opt_state=model.opt_state)
+
+    def epoch():
+        """One epoch and its one read of the losses, as fit runs it."""
+        (state['params'], state['opt_state'], post, pre,
+         valid) = model.epoch_fn(state['params'], state['opt_state'],
+                                 model.normalizer, train, test, FIT_PATHS,
+                                 FIT_VALID_PATHS, steps, steps_test, gen)
+        return torch.stack([post, pre, valid]).tolist()
+    time_fit_epochs(epoch, steps,
+                    f'fit at {FIT_PATHS} train x {FIT_T} steps ({steps} '
+                    f'meta-train steps + {steps_test} valid steps an epoch; '
+                    'data drawn for timing only)', card)
+
+
+def gauss_rows(norm, shape, gen):
+    """Rows (obs, act, delta) of `shape` (leading dims), for timing only:
+    obs and delta Gaussian around the normalizer's statistics, actions
+    uniform in [-1, 1]."""
+    import torch
+    dev = norm.obs_mean.device
+
+    def gauss(mean, std):
+        return mean + std * torch.randn(shape + (mean.shape[0],),
+                                        generator=gen, device=dev)
+    return torch.cat([
+        gauss(norm.obs_mean, norm.obs_std),
+        2 * torch.rand(shape + (norm.act_mean.shape[0],), generator=gen,
+                       device=dev) - 1,
+        gauss(norm.delta_mean, norm.delta_std)], dim=-1)
+
+
+def mb_mpc_fit_phase(model, card):
+    """Phase 10: the MB-MPC fit's epoch at full width on a dataset of the
+    size its run holds by iteration 16 (15,300 train rows: 128 steps of
+    128 rows an epoch; validation over the padded 16,384-row test set)."""
+    import torch
+    from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
+    from learning_to_adapt_torch.models.mlp import PAD_CHUNK
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(8)
+    staged = []
+    for n in (MB_FIT_ROWS, MB_FIT_VALID_ROWS):
+        cap = max(PAD_CHUNK, -(-n // PAD_CHUNK) * PAD_CHUNK)
+        rows = torch.zeros((cap, 2 * model.obs_dim + model.act_dim),
+                           device=model.device)
+        rows[:n] = gauss_rows(model.normalizer, (n,), gen)
+        w = (torch.arange(cap, device=model.device) < n).float()
+        staged.append((rows, w))
+    steps = _bucket_pow2(max(MB_FIT_ROWS // model.batch_size, 1))
+    if steps != 128:
+        raise AssertionError(f'steps per epoch {steps}')
+    state = dict(params=model.params, opt_state=model.opt_state)
+
+    def epoch():
+        (state['params'], state['opt_state'], train_loss,
+         valid) = model.epoch_fn(state['params'], state['opt_state'],
+                                 model.normalizer, *staged, steps, gen)
+        return torch.stack([train_loss, valid]).tolist()
+    time_fit_epochs(epoch, steps,
+                    f'MB-MPC fit at {MB_FIT_ROWS} train rows ({steps} steps '
+                    f'of {model.batch_size} rows an epoch + the padded '
+                    f'{staged[1][0].shape[0]}-row validation; data drawn for '
+                    'timing only)', card)
+
+
+def rebal_fit_phase(model, card):
+    """Phase 11: the ReBAL fit's epoch at full width on a dataset of the
+    size its run holds by iteration 16 (68 train paths x 1000 steps: 8
+    steps of 10 paths an epoch, each 10 TBPTT chunks of 100 steps;
+    validation over the padded 64-path test set)."""
+    import torch
+    from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
+    from learning_to_adapt_torch.models.rnn import PATH_CHUNK
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(9)
+    staged = []
+    for n in (RB_FIT_PATHS, RB_FIT_VALID_PATHS):
+        cap = -(-n // PATH_CHUNK) * PATH_CHUNK
+        paths = torch.zeros((cap, FIT_T, 2 * model.obs_dim + model.act_dim),
+                            device=model.device)
+        paths[:n] = gauss_rows(model.normalizer, (n, FIT_T), gen)
+        staged.append((paths, (torch.arange(cap, device=model.device)
+                               < n).float()))
+    steps = _bucket_pow2(max(RB_FIT_PATHS // model.batch_size, 1))
+    if steps != 8 or FIT_T // model.backprop_steps != 10:
+        raise AssertionError(f'steps per epoch {steps}')
+    state = dict(params=model.params, opt_state=model.opt_state)
+
+    def epoch():
+        (state['params'], state['opt_state'], train_loss,
+         valid) = model.epoch_fn(state['params'], state['opt_state'],
+                                 model.normalizer, staged[0][0], staged[1],
+                                 RB_FIT_PATHS, steps, gen)
+        return torch.stack([train_loss, valid]).tolist()
+    time_fit_epochs(epoch, steps,
+                    f'ReBAL fit at {RB_FIT_PATHS} train paths x {FIT_T} '
+                    f'steps ({steps} steps of {model.batch_size} paths, '
+                    f'{FIT_T // model.backprop_steps} TBPTT chunks each, + '
+                    f'the padded {staged[1][0].shape[0]}-path validation; '
+                    'data drawn for timing only)', card)
 
 
 def main():
@@ -831,28 +1107,50 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
 
+    def stamp(what):
+        log(f'elapsed {time.time() - t_start:.1f} s: {what}')
+
     floor_lib = build_kernels()
     kernels = [check_fused_mlp(dev), check_jacobi(dev, floor_lib)]
+    kernels[0].update(check_fused_mlp_mb_mpc(dev))
+    stamp('kernels')
     launches, sampler = main_path(dev, card)
     profile_policy_steps(dev, sampler)
     check_host_syncs(dev, sampler)
-    per_policy_itr, trainer_total, model = trainer_phase(dev, card)
+    stamp('GrBAL sampling')
+    per_policy_itr, trainer_total, trainer = grbal_trainer_phase(dev, card)
     for name in launches:
         if launches[name] != per_policy_itr[name]:
             raise AssertionError(f'{name}: sampling phase {launches[name]} '
                                  'launches, trainer policy iteration '
                                  f'{per_policy_itr[name]}')
-    fit_phase(model, card)
+    fit_phase(trainer.dynamics_model, card)
+    stamp('GrBAL trainer and fit')
+    mb_itr, mb_total, mb_trainer = mb_mpc_trainer_phase(dev, card)
+    stamp('MB-MPC trainer')
+    rb_itr, rb_total, rb_trainer = rebal_trainer_phase(dev, card)
+    stamp('ReBAL trainer')
+    mb_mpc_fit_phase(mb_trainer.dynamics_model, card)
+    rebal_fit_phase(rb_trainer.dynamics_model, card)
+    stamp('MB-MPC and ReBAL fits')
     for k in kernels:
         k['launches'] = per_policy_itr[k['name']]
         k['trainer_launches'] = trainer_total[k['name']]
+        k['mb_mpc_launches'] = mb_itr[k['name']]
+        k['rebal_launches'] = rb_itr[k['name']]
+        k['mb_mpc_trainer_launches'] = mb_total[k['name']]
+        k['rebal_trainer_launches'] = rb_total[k['name']]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
             'library_device_ms', 'device_ms', 'floor_ms', 'ms_512',
-            'trainer_launches')
+            'trainer_launches', 'mb_mpc_launches', 'rebal_launches',
+            'mb_mpc_trainer_launches', 'rebal_trainer_launches',
+            'mb_mpc_max_abs_err', 'mb_mpc_ms', 'mb_mpc_device_ms',
+            'mb_mpc_plain_ms', 'mb_mpc_bound_ms', 'mb_mpc_library_ms',
+            'mb_mpc_library_device_ms')
     log(f'total {time.time() - t_start:.1f} s')
     log(card_line())
-    log(json.dumps({'kernels': [{k: kern[k] for k in keys}
+    log(json.dumps({'kernels': [{k: kern.get(k) for k in keys}
                                 for kern in kernels]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

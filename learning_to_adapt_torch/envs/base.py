@@ -43,7 +43,8 @@ class TorchEnv(Serializable):
     """Base env: subclasses define model, observation, reward and task
     sampling. Instances hold static config and the nominal model tensors.
     Serializable: pickling replays the constructor, device included, which
-    is how envs ride in params.pkl snapshots."""
+    is how envs ride in params.pkl snapshots; a loader may name another
+    device (utils/checkpoint.py load_snapshot)."""
 
     name: str = 'env'
 

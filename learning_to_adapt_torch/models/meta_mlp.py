@@ -17,8 +17,6 @@ consumed exactly as the JAX package consumes it (one permutation per fit
 for the train/valid split, one draw that seeds the window generator), so
 every fit's split and aggregated buffers equal the JAX package's.
 """
-from dataclasses import fields
-
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -26,7 +24,10 @@ from torch.profiler import record_function
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.models import core
 from learning_to_adapt_torch.models.normalizer import (
-    Normalizer, normalizer_from_numpy)
+    Normalizer, normalizer_from_numpy, normalizer_to_numpy)
+from learning_to_adapt_torch.models.optim import (
+    ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
+    state_from_jax_numpy, tree_to_numpy)
 from learning_to_adapt_torch.ops.fused_mlp import PackedMLP, fused_mlp_forward
 
 PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
@@ -49,50 +50,6 @@ def _tree(leaves, n_w):
     return {'w': list(leaves[:n_w]), 'b': list(leaves[n_w:])}
 
 
-class ClipAdam:
-    """optax.chain(clip_by_global_norm(max_norm), adam(learning_rate)) on
-    {'w': [...], 'b': [...]} parameter trees: the global norm clip
-    `g if norm < max_norm else g / norm * max_norm` (not
-    clip_grad_norm_'s max_norm / (norm + 1e-6)), then Adam with optax's
-    bias correction. The state is dict(count, mu, nu) on the params'
-    device; nothing here reads a device value on the host."""
-
-    def __init__(self, learning_rate, max_norm=100.0, b1=0.9, b2=0.999,
-                 eps=1e-8):
-        self.learning_rate = learning_rate
-        self.max_norm = max_norm
-        self.b1, self.b2, self.eps = b1, b2, eps
-
-    def init(self, params):
-        zeros = {k: [torch.zeros_like(p) for p in v]
-                 for k, v in params.items()}
-        return dict(count=torch.zeros((), dtype=torch.int32,
-                                      device=params['w'][0].device),
-                    mu=zeros, nu={k: [z.clone() for z in v]
-                                  for k, v in zeros.items()})
-
-    def update(self, grads, state, params):
-        """Returns (new params, new state)."""
-        b1, b2 = self.b1, self.b2
-        g = _leaves(grads)
-        norm = torch.sqrt(sum(torch.sum(torch.square(x)) for x in g))
-        keep = norm < self.max_norm
-        g = [torch.where(keep, x, x / norm * self.max_norm) for x in g]
-        mu = [(1 - b1) * x + b1 * m for x, m in zip(g, _leaves(state['mu']))]
-        nu = [(1 - b2) * torch.square(x) + b2 * v
-              for x, v in zip(g, _leaves(state['nu']))]
-        count = state['count'] + 1
-        c = count.to(g[0].dtype)
-        bc1 = 1 - torch.pow(b1, c)
-        bc2 = 1 - torch.pow(b2, c)
-        lr = self.learning_rate
-        new = [p - lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
-               for p, m, v in zip(_leaves(params), mu, nu)]
-        n_w = len(params['w'])
-        return _tree(new, n_w), dict(count=count, mu=_tree(mu, n_w),
-                                     nu=_tree(nu, n_w))
-
-
 class MetaMLPDynamicsModel:
     def __init__(self, name, env, hidden_sizes=(512, 512), meta_batch_size=10,
                  hidden_nonlinearity='relu', output_nonlinearity=None,
@@ -100,9 +57,6 @@ class MetaMLPDynamicsModel:
                  normalize_input=True, valid_split_ratio=0.2,
                  rolling_average_persitency=0.99, seed=0,
                  dtype=torch.float32, device='cuda'):
-        if output_nonlinearity is not None:
-            raise NotImplementedError('the planner kernel has an identity '
-                                      'output layer')
         self.name = name
         self.device = resolve_device(device)
         self.obs_dim = env.obs_dim
@@ -386,11 +340,13 @@ class MetaMLPDynamicsModel:
         (leading env axis; a broadcast view of one set works too), or their
         ops.fused_mlp.pack_weights, which the planner makes once per step.
         The planner path: bf16 products, f32 accumulation, in the fused-MLP
-        kernel on the card, which packs unpacked params on every call."""
+        kernel on the card, which packs unpacked params on every call; the
+        output nonlinearity applies to the kernel's f32 output."""
         x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
         p = adapted_params
         ws, bs = (p, None) if isinstance(p, PackedMLP) else (p['w'], p['b'])
-        delta = fused_mlp_forward(x, ws, bs, self.hidden_nonlinearity)
+        delta = core.activation(self.output_nonlinearity)(
+            fused_mlp_forward(x, ws, bs, self.hidden_nonlinearity))
         return obs + norm.denorm_delta(delta)
 
     def predict_fn(self, params, norm, obs, act):
@@ -435,16 +391,9 @@ class MetaMLPDynamicsModel:
         include_data also the dataset buffers and the split/shuffle RNG
         (the train/valid composition of every future fit depends on it),
         for full-fidelity resume."""
-        def host(tree):
-            return {k: [p.detach().cpu().numpy() for p in v]
-                    for k, v in tree.items()}
-        opt = self.opt_state
-        sd = dict(params=host(self.params),
-                  opt_state=dict(count=opt['count'].cpu().numpy(),
-                                 mu=host(opt['mu']), nu=host(opt['nu'])),
-                  normalizer={f.name: getattr(self.normalizer,
-                                              f.name).cpu().numpy()
-                              for f in fields(Normalizer)})
+        sd = dict(params=tree_to_numpy(self.params),
+                  opt_state=adam_state_to_numpy(self.opt_state),
+                  normalizer=normalizer_to_numpy(self.normalizer))
         if include_data:
             sd.update(train=self._train, test=self._test,
                       rng_state=self._rng.get_state())
@@ -453,12 +402,8 @@ class MetaMLPDynamicsModel:
     def load_state_dict(self, sd):
         dev = self.device
         self.params = core.params_from_numpy(sd['params'], dev, self.dtype)
-        opt = sd['opt_state']
-        self.opt_state = dict(
-            count=torch.tensor(np.asarray(opt['count']),
-                                  dtype=torch.int32, device=dev),
-            mu=core.params_from_numpy(opt['mu'], dev, self.dtype),
-            nu=core.params_from_numpy(opt['nu'], dev, self.dtype))
+        self.opt_state = adam_state_from_numpy(sd['opt_state'], dev,
+                                               self.dtype)
         self.normalizer = normalizer_from_numpy(sd['normalizer'], dev,
                                                 self.dtype)
         self._train = sd.get('train')
@@ -467,20 +412,6 @@ class MetaMLPDynamicsModel:
             self._rng.set_state(sd['rng_state'])
 
 
-def meta_state_from_numpy(sd):
-    """The JAX package's MetaMLPDynamicsModel.state_dict(...) (after
-    jax.device_get) in the port's state_dict layout, for load_state_dict:
-    optax's chain state (EmptyState, (ScaleByAdamState(count, mu, nu),
-    EmptyState)) becomes dict(count, mu, nu), the normalizer a dict of its
-    six fields; params, dataset buffers and RNG state carry over as they
-    are."""
-    _, (adam, _) = sd['opt_state']
-
-    def tree(t):
-        return {k: [np.asarray(a) for a in t[k]] for k in ('w', 'b')}
-    norm = sd['normalizer']
-    return dict(sd, params=tree(sd['params']),
-                opt_state=dict(count=np.asarray(adam.count), mu=tree(adam.mu),
-                               nu=tree(adam.nu)),
-                normalizer={f.name: np.asarray(getattr(norm, f.name))
-                            for f in fields(Normalizer)})
+#: the JAX package's MetaMLPDynamicsModel.state_dict(...) (after
+#: jax.device_get) in the port's layout, for load_state_dict
+meta_state_from_numpy = state_from_jax_numpy

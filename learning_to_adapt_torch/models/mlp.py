@@ -1,0 +1,313 @@
+"""Feed-forward dynamics model for MB-MPC, and ensembles of it
+(models/mlp.py).
+
+    predict(obs, act) = obs + denorm(f(norm(obs, act)))
+
+The model predicts normalized state deltas, aggregates its dataset across
+iterations and stops early on a rolling average of the validation loss.
+As in the JAX package, the dataset is padded to a multiple of PAD_CHUNK
+rows, the padding weighted 0 in the losses, and an epoch's minibatches are
+drawn from a permutation of the padded capacity, not of the real rows.
+
+With n_members > 1 every parameter carries a leading member axis: the
+training loss sums over members and the prediction is the member mean.
+
+The fit runs in f32 (torch.matmul, TF32 off: device.resolve_device). The
+planner's prediction runs the fused-MLP kernel (bf16 products, f32
+accumulation), the member axis as its group axis; `pack` makes the
+kernel's weight stream once for a sampling call.
+
+A fit stages its dataset on the device once and reads the losses back once
+per epoch, for the early stop: no train step waits for the device. The host
+RNG (numpy, seed + 1) is consumed as the JAX package consumes it: one
+permutation per fit for the split and one draw that seeds the device
+generator of the epochs' permutations.
+"""
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from learning_to_adapt_torch.device import resolve_device
+from learning_to_adapt_torch.models import core
+from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
+from learning_to_adapt_torch.models.normalizer import (
+    Normalizer, normalizer_from_numpy, normalizer_to_numpy)
+from learning_to_adapt_torch.models.optim import (
+    ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
+    state_from_jax_numpy, tree_from_numpy, tree_leaves, tree_to_numpy,
+    tree_unflatten)
+from learning_to_adapt_torch.ops.fused_mlp import (
+    PackedMLP, fused_mlp_forward, pack_weights)
+
+PAD_CHUNK = 16384  # staged dataset capacity grows in row chunks
+
+
+def _pad_rows(arrs, count, chunk=PAD_CHUNK):
+    """Numpy row arrays padded with zeros to a multiple of `chunk` rows (at
+    least one chunk); returns the padded arrays and the weight vector, 1
+    for the real rows."""
+    cap = max(chunk, int(np.ceil(count / chunk)) * chunk)
+    out = []
+    for a in arrs:
+        p = np.zeros((cap,) + a.shape[1:], a.dtype)
+        p[:count] = a[:count]
+        out.append(p)
+    w = np.zeros((cap,), np.float32)
+    w[:count] = 1.0
+    return out, w
+
+
+class MLPDynamicsModel:
+    def __init__(self, name, env, hidden_sizes=(512, 512),
+                 hidden_nonlinearity='relu', output_nonlinearity=None,
+                 batch_size=500, learning_rate=0.001, normalize_input=True,
+                 valid_split_ratio=0.2, rolling_average_persitency=0.99,
+                 n_members=1, seed=0, dtype=torch.float32, device='cuda'):
+        self.name = name
+        self.device = resolve_device(device)
+        self.obs_dim = env.obs_dim
+        self.act_dim = env.act_dim
+        self.hidden_sizes = tuple(hidden_sizes)
+        self.hidden_nonlinearity = hidden_nonlinearity
+        self.output_nonlinearity = output_nonlinearity
+        self.batch_size = batch_size
+        self.learning_rate = learning_rate
+        self.normalize_input = normalize_input
+        self.valid_split_ratio = valid_split_ratio
+        self.rolling_average_persitency = rolling_average_persitency
+        self.n_members = n_members
+        self.dtype = dtype
+
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        members = [core.init_mlp(gen, self.obs_dim + self.act_dim,
+                                 self.hidden_sizes, self.obs_dim, dtype,
+                                 self.device) for _ in range(n_members)]
+        self.params = members[0] if n_members == 1 else {
+            k: [torch.stack(ps) for ps in zip(*(m_[k] for m_ in members))]
+            for k in ('w', 'b')}
+        # global-norm clipping protects the fit from occasional outlier
+        # transitions (crash states), as in the JAX package
+        self.optimizer = ClipAdam(learning_rate, max_norm=100.0)
+        self.opt_state = self.optimizer.init(self.params)
+        self.normalizer = Normalizer.init(self.obs_dim, self.act_dim, dtype,
+                                          self.device)
+
+        self._train = None  # dict of numpy [rows, d], raw
+        self._test = None
+        self._rng = np.random.RandomState(seed + 1)
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
+            valid_split_ratio=None, rolling_average_persitency=None,
+            verbose=False, log_tabular=False, logger=None):
+        if obs.ndim != 2 or obs.shape[1] != self.obs_dim:
+            raise ValueError(f'obs must be [rows, {self.obs_dim}], got '
+                             f'{obs.shape}')
+        if act.ndim != 2 or act.shape[1] != self.act_dim:
+            raise ValueError(f'act must be [rows, {self.act_dim}], got '
+                             f'{act.shape}')
+        obs = np.asarray(obs, np.float32)
+        act = np.asarray(act, np.float32)
+        delta = np.asarray(obs_next, np.float32) - obs
+        if valid_split_ratio is None:
+            valid_split_ratio = self.valid_split_ratio
+        if rolling_average_persitency is None:
+            rolling_average_persitency = self.rolling_average_persitency
+
+        # normalization stats from this iteration's fresh data
+        if self.normalize_input and (compute_normalization or
+                                     self._train is None):
+            self.normalizer = Normalizer.fit(
+                *(torch.as_tensor(a, device=self.device)
+                  for a in (obs, act, delta)))
+
+        # random train/valid split, then append to the aggregated datasets
+        n = obs.shape[0]
+        idx = self._rng.permutation(n)
+        split = int(n * (1 - valid_split_ratio))
+        tr, te = idx[:split], idx[split:]
+        new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
+        new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
+        if self._train is None:
+            self._train, self._test = new_tr, new_te
+        else:
+            self._train = {k: np.concatenate([self._train[k], new_tr[k]])
+                           for k in new_tr}
+            self._test = {k: np.concatenate([self._test[k], new_te[k]])
+                          for k in new_te}
+
+        train, test = self.stage(self._train), self.stage(self._test)
+        n_train = self._train['obs'].shape[0]
+        n_batches = _bucket_pow2(max(n_train // self.batch_size, 1))
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(int(self._rng.randint(1 << 31)))
+
+        valid_avg = valid_avg_prev = None
+        epoch = 0
+        train_loss = float('nan')
+        for epoch in range(epochs):
+            (self.params, self.opt_state, train_t,
+             valid_t) = self.epoch_fn(self.params, self.opt_state,
+                                      self.normalizer, train, test,
+                                      n_batches, generator)
+            # the epoch's one read of device values
+            train_loss, valid_loss = torch.stack([train_t, valid_t]).tolist()
+            if valid_avg is None:
+                # seeded above the first value so that epoch 0 never stops
+                valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
+                    else valid_loss / 1.5
+                valid_avg_prev = 2 * valid_loss if valid_loss >= 0 \
+                    else valid_loss / 2
+            valid_avg = (rolling_average_persitency * valid_avg +
+                         (1 - rolling_average_persitency) * valid_loss)
+            if verbose and logger is not None:
+                logger.log(f'Epoch {epoch} train {train_loss:.5f} '
+                           f'valid {valid_loss:.5f} avg {valid_avg:.5f}')
+            if valid_avg_prev < valid_avg or epoch == epochs - 1:
+                break
+            valid_avg_prev = valid_avg
+        if log_tabular and logger is not None:
+            logger.logkv('Epochs', epoch)
+            logger.logkv('TrainLoss', train_loss)
+            logger.logkv('ValidLoss', float(valid_avg))
+        return dict(epochs=epoch, train_loss=train_loss)
+
+    def stage(self, data):
+        """Rows dict(obs, act, delta) of numpy [rows, d] -> (rows (cap,
+        obs+act+obs) f32, weights (cap,)) on the device, zero-padded to the
+        PAD_CHUNK capacity."""
+        count = data['obs'].shape[0]
+        (rows,), w = _pad_rows([np.concatenate(
+            [data['obs'], data['act'], data['delta']], axis=-1)], count)
+        return (torch.as_tensor(rows, device=self.device),
+                torch.as_tensor(w, device=self.device))
+
+    def _forward_normalized(self, params, norm, obs, act):
+        """f32 forward in normalized space: the normalized delta, with a
+        leading member axis for an ensemble."""
+        x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
+        return core.mlp_forward(params, x, self.hidden_nonlinearity,
+                                self.output_nonlinearity)
+
+    def loss_fn(self, params, norm, rows, w):
+        """Weighted mean squared error of staged rows: the squared error's
+        mean over obs dims, times the row weight, summed (over members
+        too) and divided by max(sum(w), 1)."""
+        obs, act, delta = rows.split([self.obs_dim, self.act_dim,
+                                      self.obs_dim], dim=-1)
+        pred = self._forward_normalized(params, norm, obs, act)
+        err = torch.square(pred - norm.norm_delta(delta))
+        return torch.sum(err.mean(-1) * w) / torch.clamp(w.sum(), min=1.0)
+
+    @torch.no_grad()
+    def epoch_fn(self, params, opt_state, norm, train, test, n_batches,
+                 generator, perm=None):
+        """One epoch: n_batches minibatches of batch_size rows taken in the
+        order of a permutation of the padded train capacity (`perm`, or one
+        drawn on the device), each a loss, gradient, clip and Adam step;
+        then the loss on the whole padded test set. train/test: staged (see
+        `stage`). Returns (params, opt_state, mean train loss, valid loss),
+        the losses 0-d device tensors; nothing here waits for the device.
+        Each step is labelled 'fit.train_step' for torch.profiler."""
+        rows, w = train
+        bs = self.batch_size
+        if perm is None:
+            perm = torch.randperm(rows.shape[0], generator=generator,
+                                  device=rows.device)
+        sel = perm[:n_batches * bs].reshape(n_batches, bs)
+        losses = []
+        for i in range(n_batches):
+            with record_function('fit.train_step'):
+                leaves = [p.detach().requires_grad_(True)
+                          for p in tree_leaves(params)]
+                with torch.enable_grad():
+                    loss = self.loss_fn(tree_unflatten(params, leaves), norm,
+                                        rows[sel[i]], w[sel[i]])
+                    grads = torch.autograd.grad(loss, leaves)
+                params, opt_state = self.optimizer.update(
+                    tree_unflatten(params, grads), opt_state, params)
+                losses.append(loss.detach())
+        valid = self.loss_fn(params, norm, *test)
+        return params, opt_state, torch.stack(losses).mean(), valid
+
+    # -------------------------------------------------------------- predict
+    def _grouped(self, params):
+        """Per-layer weights (G, in, out) and biases (G, out), the member
+        axis as the kernel's group axis (G = 1 for a single model)."""
+        if self.n_members == 1:
+            return ([w.unsqueeze(0) for w in params['w']],
+                    [b.unsqueeze(0) for b in params['b']])
+        return params['w'], params['b']
+
+    def pack(self, params):
+        """The kernel's weight stream for params, made once and reused by
+        every prediction of a sampling call."""
+        return pack_weights(*self._grouped(params))
+
+    def predict_fn(self, params, norm, obs, act):
+        """obs/act rows (N, d) -> next obs (N, obs_dim): the planner path,
+        bf16 products and f32 accumulation in the fused-MLP kernel on the
+        card; every member sees every row and the prediction is the member
+        mean. params: the parameter dict (packed here on every call) or
+        its `pack`. The output nonlinearity applies to the kernel's f32
+        output."""
+        x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
+        ws, bs = ((params, None) if isinstance(params, PackedMLP)
+                  else self._grouped(params))
+        xg = x.unsqueeze(0).expand(self.n_members, *x.shape)
+        delta = core.activation(self.output_nonlinearity)(
+            fused_mlp_forward(xg, ws, bs, self.hidden_nonlinearity))
+        return obs + norm.denorm_delta(delta.mean(0))
+
+    @torch.no_grad()
+    def predict(self, obs, act):
+        """Host API: next observations (N, obs_dim) as numpy."""
+        obs, act = (torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                    device=self.device) for a in (obs, act))
+        return self.predict_fn(self.params, self.normalizer, obs,
+                               act).cpu().numpy()
+
+    # ----------------------------------------------------------- adaptation
+    # MB-MPC does not adapt online: no-ops for API parity with the meta and
+    # recurrent models
+    def adapt(self, obs, act, obs_next):
+        pass
+
+    def switch_to_pre_adapt(self):
+        pass
+
+    @property
+    def recurrent(self):
+        return False
+
+    # ---------------------------------------------------------------- state
+    def state_dict(self, include_data=False):
+        """numpy copies of params, optimizer state and normalizer; with
+        include_data also the dataset buffers and the split/shuffle RNG,
+        for full-fidelity resume."""
+        sd = dict(params=tree_to_numpy(self.params),
+                  opt_state=adam_state_to_numpy(self.opt_state),
+                  normalizer=normalizer_to_numpy(self.normalizer))
+        if include_data:
+            sd.update(train=self._train, test=self._test,
+                      rng_state=self._rng.get_state())
+        return sd
+
+    def load_state_dict(self, sd):
+        dev = self.device
+        self.params = tree_from_numpy(sd['params'], dev, self.dtype)
+        self.opt_state = adam_state_from_numpy(sd['opt_state'], dev,
+                                               self.dtype)
+        self.normalizer = normalizer_from_numpy(sd['normalizer'], dev,
+                                                self.dtype)
+        self._train = sd.get('train')
+        self._test = sd.get('test')
+        if sd.get('rng_state') is not None:
+            self._rng.set_state(sd['rng_state'])
+
+
+#: the JAX package's MLPDynamicsModel.state_dict(...) (after
+#: jax.device_get) in the port's layout, for load_state_dict; an
+#: ensemble's leading member axis is kept
+mlp_state_from_numpy = state_from_jax_numpy

@@ -64,6 +64,11 @@ class Normalizer:
         return delta_n * (self.delta_std + EPS) + self.delta_mean
 
 
+def normalizer_to_numpy(norm):
+    return {f.name: getattr(norm, f.name).cpu().numpy()
+            for f in fields(Normalizer)}
+
+
 def normalizer_from_numpy(stats, device, dtype=torch.float32):
     """Normalizer from arrays: a mapping or an object with the six fields
     (e.g. jax.device_get of the JAX package's model.normalizer)."""

@@ -1,0 +1,333 @@
+"""Recurrent dynamics model for ReBAL (models/rnn.py).
+
+LSTM, GRU or plain RNN cells over [B, T, obs+act] inputs, predicting each
+step's normalized delta through one linear output layer. Online adaptation
+is the hidden state itself: `predict_fn` threads it.
+
+The fit is truncated BPTT: each train step takes batch_size paths, drawn
+with replacement, cuts them into backprop_steps-long chunks, carries the
+hidden state from chunk to chunk with its gradient stopped, and averages
+the chunks' losses and gradients before one clip + Adam step. Validation is
+the masked loss over the whole padded test set.
+
+Two routes compute the same cells. A fit's chunk, and any whole sequence,
+runs through torch's recurrent layer ops (torch.lstm / gru / rnn_tanh, as
+nn.LSTM / GRU / RNN call them; cuDNN on the card), which use the same gate
+order: JAX's `b` is their input-side bias and their hidden-side bias is a
+constant, 1.0 on the LSTM's forget gate (core.FORGET_BIAS) and 0
+elsewhere, never trained. The planner's single steps use the cell
+equations of models/core.py. Parameters keep the JAX package's tree
+{'cells': [{'wi', 'wh', 'b'}, ...], 'out': {'w', 'b'}}.
+All of it is f32 (TF32 off: device.resolve_device); no kernel of ours runs
+here, as the JAX model runs outside both Pallas kernels.
+
+The host RNG (numpy, seed + 1) is consumed as the JAX package consumes it:
+one permutation of the paths per fit for the split and one draw that seeds
+the device generator of the path indices.
+"""
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from learning_to_adapt_torch.device import resolve_device
+from learning_to_adapt_torch.models import core
+from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
+from learning_to_adapt_torch.models.normalizer import (
+    Normalizer, normalizer_from_numpy, normalizer_to_numpy)
+from learning_to_adapt_torch.models.optim import (
+    ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
+    state_from_jax_numpy, tree_from_numpy, tree_leaves, tree_map,
+    tree_to_numpy, tree_unflatten)
+
+PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
+
+
+class RNNDynamicsModel:
+    def __init__(self, name, env, hidden_sizes=(256,), cell_type='lstm',
+                 learning_rate=0.001, batch_size=10, backprop_steps=50,
+                 normalize_input=True, output_nonlinearity=None,
+                 valid_split_ratio=0.2, rolling_average_persitency=0.99,
+                 seed=0, dtype=torch.float32, device='cuda'):
+        self.name = name
+        self.device = resolve_device(device)
+        self.obs_dim = env.obs_dim
+        self.act_dim = env.act_dim
+        self.hidden_sizes = tuple(hidden_sizes)
+        self.cell_type = cell_type
+        self.batch_size = batch_size
+        self.backprop_steps = backprop_steps
+        self.learning_rate = learning_rate
+        self.normalize_input = normalize_input
+        self.output_nonlinearity = output_nonlinearity
+        self.valid_split_ratio = valid_split_ratio
+        self.rolling_average_persitency = rolling_average_persitency
+        self.dtype = dtype
+
+        init_cell, self._cell_step, self._zero_state = core.CELLS[cell_type]
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        in_dim = self.obs_dim + self.act_dim
+        cells, self._hidden_bias = [], []
+        for h in self.hidden_sizes:
+            cells.append(init_cell(gen, in_dim, h, dtype, self.device))
+            bias = torch.zeros(cells[-1]['b'].shape, dtype=dtype,
+                               device=self.device)
+            if cell_type == 'lstm':
+                bias[h:2 * h] = core.FORGET_BIAS
+            self._hidden_bias.append(bias)
+            in_dim = h
+        out = core.init_mlp(gen, in_dim, (), self.obs_dim, dtype, self.device)
+        self.params = {'cells': cells, 'out': out}
+        # global-norm clipping protects the fit from occasional outlier
+        # transitions (crash states), as in the JAX package
+        self.optimizer = ClipAdam(learning_rate, max_norm=100.0)
+        self.opt_state = self.optimizer.init(self.params)
+        self.normalizer = Normalizer.init(self.obs_dim, self.act_dim, dtype,
+                                          self.device)
+
+        self._train = None  # dict of numpy [P, T, d], raw
+        self._test = None
+        self._rng = np.random.RandomState(seed + 1)
+
+    # ------------------------------------------------------------- forward
+    def get_initial_hidden(self, batch_size):
+        """Zero hidden state, one entry per layer ((h, c) for the LSTM)."""
+        return tuple(self._zero_state(batch_size, h, self.dtype, self.device)
+                     for h in self.hidden_sizes)
+
+    def _step_core(self, params, hidden, x):
+        """One time step through the stacked cells. x: (B, in_dim)."""
+        new_hidden = []
+        for cell_p, h in zip(params['cells'], hidden):
+            h2, x = self._cell_step(cell_p, h, x)
+            new_hidden.append(h2)
+        delta_n = core.mlp_forward(params['out'], x, None,
+                                   self.output_nonlinearity)
+        return tuple(new_hidden), delta_n
+
+    def _layer_seq(self, i, cell, x, h):
+        """x (B, T, in) through layer i from hidden h, in torch's recurrent
+        layer op (torch.lstm / gru / rnn_tanh: cuDNN on the card) with this
+        cell's weights in torch's (kH, in) layout, which cuDNN copies into
+        its own buffer each call (it views them, so they are contiguous)."""
+        weights = [cell['wi'].T.contiguous(), cell['wh'].T.contiguous(),
+                   cell['b'], self._hidden_bias[i]]
+        # cuDNN keeps what its backward needs only in training mode
+        args = (weights, True, 1, 0.0, torch.is_grad_enabled(), False, True)
+        if self.cell_type == 'lstm':
+            out, hn, cn = torch.lstm(x, (h[0][None], h[1][None]), *args)
+            return out, (hn[0], cn[0])
+        op = torch.gru if self.cell_type == 'gru' else torch.rnn_tanh
+        out, hn = op(x, h[None], *args)
+        return out, hn[0]
+
+    def forward_seq(self, params, norm, obs, act, hidden):
+        """obs/act: (B, T, d). Returns (normalized delta predictions (B, T,
+        obs_dim), hidden after the last step)."""
+        x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
+        new_hidden = []
+        for i, (cell, h) in enumerate(zip(params['cells'], hidden)):
+            x, h2 = self._layer_seq(i, cell, x, h)
+            new_hidden.append(h2)
+        delta_n = core.mlp_forward(params['out'], x, None,
+                                   self.output_nonlinearity)
+        return delta_n, tuple(new_hidden)
+
+    def predict_fn(self, params, norm, obs, act, hidden):
+        """One step from hidden for rows obs/act (B, d), by the cell
+        equations: returns (obs + denorm(delta), hidden')."""
+        x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
+        hidden, delta_n = self._step_core(params, hidden, x)
+        return obs + norm.denorm_delta(delta_n), hidden
+
+    @torch.no_grad()
+    def predict(self, obs, act, hidden):
+        """Host API: (next observations as numpy, hidden')."""
+        obs, act = (torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                    device=self.device) for a in (obs, act))
+        out, hidden = self.predict_fn(self.params, self.normalizer, obs, act,
+                                      hidden)
+        return out.cpu().numpy(), hidden
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
+            valid_split_ratio=None, rolling_average_persitency=None,
+            verbose=False, log_tabular=False, logger=None):
+        if obs.ndim != 3 or obs.shape[2] != self.obs_dim:
+            raise ValueError(f'obs must be [paths, T, {self.obs_dim}], got '
+                             f'{obs.shape}')
+        obs = np.asarray(obs, np.float32)
+        act = np.asarray(act, np.float32)
+        delta = np.asarray(obs_next, np.float32) - obs
+        if valid_split_ratio is None:
+            valid_split_ratio = self.valid_split_ratio
+        if rolling_average_persitency is None:
+            rolling_average_persitency = self.rolling_average_persitency
+
+        if self.normalize_input and (compute_normalization or
+                                     self._train is None):
+            self.normalizer = Normalizer.fit(
+                *(torch.as_tensor(a, device=self.device)
+                  for a in (obs, act, delta)))
+
+        n_paths = obs.shape[0]
+        idx = self._rng.permutation(n_paths)
+        split = max(int(n_paths * (1 - valid_split_ratio)), 1)
+        tr, te = idx[:split], idx[split:] if split < n_paths else idx[-1:]
+        new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
+        new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
+        if self._train is None:
+            self._train, self._test = new_tr, new_te
+        else:
+            self._train = {k: np.concatenate([self._train[k], new_tr[k]])
+                           for k in new_tr}
+            self._test = {k: np.concatenate([self._test[k], new_te[k]])
+                          for k in new_te}
+
+        p_tr = self._train['obs'].shape[0]
+        train, _ = self.stage(self._train)
+        test = self.stage(self._test)
+        n_batches = _bucket_pow2(max(p_tr // self.batch_size, 1))
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(int(self._rng.randint(1 << 31)))
+
+        valid_avg = valid_avg_prev = None
+        epoch = 0
+        train_loss = float('nan')
+        for epoch in range(epochs):
+            (self.params, self.opt_state, train_t,
+             valid_t) = self.epoch_fn(self.params, self.opt_state,
+                                      self.normalizer, train, test, p_tr,
+                                      n_batches, generator)
+            # the epoch's one read of device values
+            train_loss, valid_loss = torch.stack([train_t, valid_t]).tolist()
+            if valid_avg is None:
+                valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
+                    else valid_loss / 1.5
+                valid_avg_prev = 2 * valid_loss if valid_loss >= 0 \
+                    else valid_loss / 2
+            valid_avg = (rolling_average_persitency * valid_avg +
+                         (1 - rolling_average_persitency) * valid_loss)
+            if verbose and logger is not None:
+                logger.log(f'Epoch {epoch} train {train_loss:.5f} '
+                           f'valid {valid_loss:.5f} avg {valid_avg:.5f}')
+            if valid_avg_prev < valid_avg or epoch == epochs - 1:
+                break
+            valid_avg_prev = valid_avg
+        if log_tabular and logger is not None:
+            logger.logkv('Epochs', epoch)
+            logger.logkv('TrainLoss', train_loss)
+        return dict(epochs=epoch, train_loss=train_loss)
+
+    def stage(self, data):
+        """Paths dict(obs, act, delta) of numpy [P, T, d] -> (paths (cap, T,
+        obs+act+obs) f32, weights (cap,)) on the device, zero-padded to a
+        multiple of PATH_CHUNK paths."""
+        count, t_len = data['obs'].shape[:2]
+        cap = int(np.ceil(count / PATH_CHUNK)) * PATH_CHUNK
+        rows = np.zeros((cap, t_len, 2 * self.obs_dim + self.act_dim),
+                        np.float32)
+        rows[:count] = np.concatenate([data['obs'], data['act'],
+                                       data['delta']], axis=-1)
+        w = np.zeros((cap,), np.float32)
+        w[:count] = 1.0
+        return (torch.as_tensor(rows, device=self.device),
+                torch.as_tensor(w, device=self.device))
+
+    def _split(self, paths):
+        return paths.split([self.obs_dim, self.act_dim, self.obs_dim],
+                           dim=-1)
+
+    def tbptt_loss(self, params, norm, obs, act, delta):
+        """Mean over the chunks of each chunk's mean squared error, the
+        hidden state carried across chunks with its gradient stopped: its
+        gradient is the chunks' gradients averaged. Chunks of
+        backprop_steps steps, max(T // backprop_steps, 1) of them."""
+        bp = self.backprop_steps
+        n_chunks = max(obs.shape[1] // bp, 1)
+        hidden = self.get_initial_hidden(obs.shape[0])
+        total = 0.0
+        for c in range(n_chunks):
+            span = slice(c * bp, (c + 1) * bp)
+            pred, hidden = self.forward_seq(params, norm, obs[:, span],
+                                            act[:, span], hidden)
+            total = total + torch.mean(torch.square(
+                pred - norm.norm_delta(delta[:, span])))
+            hidden = tree_map(torch.Tensor.detach, hidden)
+        return total / n_chunks
+
+    def valid_loss(self, params, norm, test):
+        """Masked mean squared error over the whole padded test set: each
+        path's mean, weighted by its mask, over max(real paths, 1)."""
+        paths, w = test
+        obs, act, delta = self._split(paths)
+        pred, _ = self.forward_seq(params, norm, obs, act,
+                                   self.get_initial_hidden(paths.shape[0]))
+        err = torch.mean(torch.square(pred - norm.norm_delta(delta)),
+                         dim=(1, 2))
+        return torch.sum(err * w) / torch.clamp(w.sum(), min=1.0)
+
+    @torch.no_grad()
+    def epoch_fn(self, params, opt_state, norm, train, test, n_tr, n_batches,
+                 generator, path_idx=None):
+        """One epoch: n_batches train steps, each on batch_size paths drawn
+        with replacement from the first n_tr of `train` (or path_idx[i]),
+        a TBPTT loss and gradient, clip and Adam; then the validation loss.
+        train: staged paths (cap, T, d); test: (paths, weights) as `stage`
+        gives them. Returns (params, opt_state, mean train loss, valid
+        loss), the losses 0-d device tensors; nothing here waits for the
+        device. Each step is labelled 'fit.train_step' for
+        torch.profiler."""
+        losses = []
+        for i in range(n_batches):
+            with record_function('fit.train_step'):
+                idx = (path_idx[i] if path_idx is not None else
+                       torch.randint(0, n_tr, (self.batch_size,),
+                                     generator=generator,
+                                     device=train.device))
+                leaves = [p.detach().requires_grad_(True)
+                          for p in tree_leaves(params)]
+                with torch.enable_grad():
+                    loss = self.tbptt_loss(tree_unflatten(params, leaves),
+                                           norm, *self._split(train[idx]))
+                    grads = torch.autograd.grad(loss, leaves)
+                params, opt_state = self.optimizer.update(
+                    tree_unflatten(params, grads), opt_state, params)
+                losses.append(loss.detach())
+        valid = self.valid_loss(params, norm, test)
+        return params, opt_state, torch.stack(losses).mean(), valid
+
+    @property
+    def recurrent(self):
+        return True
+
+    # ---------------------------------------------------------------- state
+    def state_dict(self, include_data=False):
+        """numpy copies of params, optimizer state and normalizer; with
+        include_data also the dataset buffers and the split RNG, for
+        full-fidelity resume."""
+        sd = dict(params=tree_to_numpy(self.params),
+                  opt_state=adam_state_to_numpy(self.opt_state),
+                  normalizer=normalizer_to_numpy(self.normalizer))
+        if include_data:
+            sd.update(train=self._train, test=self._test,
+                      rng_state=self._rng.get_state())
+        return sd
+
+    def load_state_dict(self, sd):
+        dev = self.device
+        self.params = tree_from_numpy(sd['params'], dev, self.dtype)
+        self.opt_state = adam_state_from_numpy(sd['opt_state'], dev,
+                                               self.dtype)
+        self.normalizer = normalizer_from_numpy(sd['normalizer'], dev,
+                                                self.dtype)
+        self._train = sd.get('train')
+        self._test = sd.get('test')
+        if sd.get('rng_state') is not None:
+            self._rng.set_state(sd['rng_state'])
+
+
+#: the JAX package's RNNDynamicsModel.state_dict(...) (after
+#: jax.device_get) in the port's layout, for load_state_dict; the
+#: {'cells': [...], 'out': ...} tree is kept as it is
+rnn_state_from_numpy = state_from_jax_numpy

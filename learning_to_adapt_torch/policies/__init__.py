@@ -1,3 +1,4 @@
-"""MPC policies (random shooting in this slice of the port)."""
+"""MPC policies: random shooting and CEM, feed-forward and recurrent."""
+from learning_to_adapt_torch.policies.base import Policy  # noqa: F401
 from learning_to_adapt_torch.policies.controllers import (  # noqa: F401
-    MPCController)
+    MPCController, RNNMPCController)

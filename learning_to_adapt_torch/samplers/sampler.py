@@ -1,6 +1,9 @@
 """Sampler (samplers/sampler.py): collects `num_rollouts` paths of
 `max_path_length` steps per call, all envs batched on one device (every
 env of the batch steps at once).
+
+Its state (the generator, the episode counter) is tied to the generator's
+device type: a CUDA generator's stream does not continue on the CPU.
 """
 import time
 
@@ -14,12 +17,17 @@ from learning_to_adapt_torch.utils import logging as logger
 
 class Sampler:
     def __init__(self, env, policy, num_rollouts, max_path_length,
-                 adapt_batch_size=None, seed=0, device='cuda'):
+                 adapt_batch_size=None, seed=0, device='cuda',
+                 ablate_hidden=None, ablate_warmup=16):
         self.env = env
         self.policy = policy
         self.num_rollouts = num_rollouts
         self.max_path_length = max_path_length
         self.adapt_batch_size = adapt_batch_size
+        # the recurrent model's adaptation ablation (None | 'zero' |
+        # 'frozen', samplers/rollout.py), for evaluation
+        self.ablate_hidden = ablate_hidden
+        self.ablate_warmup = ablate_warmup
         self.total_samples = num_rollouts * max_path_length
         self.total_timesteps_sampled = 0
         self.device = resolve_device(device)
@@ -35,7 +43,9 @@ class Sampler:
             self._fns[random] = make_rollout_fn(
                 self.env, self.policy, self.policy.dynamics_model,
                 self.num_rollouts, self.max_path_length,
-                adapt_batch_size=self.adapt_batch_size, random=random)
+                adapt_batch_size=self.adapt_batch_size, random=random,
+                ablate_hidden=self.ablate_hidden,
+                ablate_warmup=self.ablate_warmup)
         return self._fns[random]
 
     def obtain_samples(self, log=False, log_prefix='', random=False):
@@ -65,10 +75,20 @@ class Sampler:
     # fresh run would have produced (utils/checkpoint.py)
     def state_dict(self):
         return dict(generator=self._generator.get_state().numpy(),
+                    device_type=self._generator.device.type,
                     episode_idx=self._episode_idx,
                     total_timesteps_sampled=self.total_timesteps_sampled)
 
     def load_state_dict(self, sd):
+        """Refuses the state of another device type's generator: a CUDA
+        generator's stream has no CPU counterpart, nor the reverse."""
+        recorded = sd.get('device_type', self._generator.device.type)
+        if recorded != self._generator.device.type:
+            raise ValueError(
+                f'the sampler state was recorded from a {recorded} '
+                f'generator and cannot continue on '
+                f'{self._generator.device.type}: resume on a {recorded} '
+                'device to continue its stream')
         self._generator.set_state(torch.from_numpy(
             np.array(sd['generator'], dtype=np.uint8)))
         self._episode_idx = int(sd['episode_idx'])

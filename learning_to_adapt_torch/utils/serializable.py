@@ -4,9 +4,26 @@ Serializable).
 `quick_init` captures constructor arguments, pickling re-invokes the
 constructor, and `clone` rebuilds with overrides. Envs ride in `params.pkl`
 snapshots this way; model and optimizer state are explicit state dicts
-(utils/checkpoint.py).
+(utils/checkpoint.py). Inside `device_override(device)`, unpickling replays
+every constructor that records a `device` with that device instead, so a
+snapshot written on the card loads on a machine without one.
 """
+import contextlib
+import contextvars
 import inspect
+
+_DEVICE = contextvars.ContextVar('serializable_device', default=None)
+
+
+@contextlib.contextmanager
+def device_override(device):
+    """Within the block, objects unpickled here are built on `device`
+    (None keeps the recorded one)."""
+    token = _DEVICE.set(device)
+    try:
+        yield
+    finally:
+        _DEVICE.reset(token)
 
 
 class Serializable:
@@ -37,7 +54,11 @@ class Serializable:
         return {'__args': self.__args, '__kwargs': self.__kwargs}
 
     def __setstate__(self, d):
-        out = type(self)(*d['__args'], **d['__kwargs'])
+        kwargs = d['__kwargs']
+        device = _DEVICE.get()
+        if device is not None and 'device' in kwargs:
+            kwargs = dict(kwargs, device=device)
+        out = type(self)(*d['__args'], **kwargs)
         self.__dict__.update(out.__dict__)
 
     @classmethod

@@ -61,6 +61,43 @@ def test_fused_mlp_kernel_matches_plain(dev, g, r, dims, act, shared, packed):
     torch.testing.assert_close(out, ref, **MLP_TOL)
 
 
+def test_fused_mlp_kernel_mb_mpc_shape(dev):
+    """MB-MPC's planner launch: 10 envs x 2000 candidates = 20,000 rows in
+    one group, 26->512->512->20, one weight set packed once."""
+    x, ws, bs = _mlp(dev, 1, 20000, (26, 512, 512, 20), seed=6, shared=True)
+    packed = fused_mlp.pack_weights(ws, bs)
+    before = fused_mlp.fused_mlp_forward.launches
+    out = fused_mlp.fused_mlp_forward(x, packed)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp_forward.launches == before + 1
+    torch.testing.assert_close(out, fused_mlp.fused_mlp_plain(x, ws, bs),
+                               **MLP_TOL)
+
+
+def test_fused_mlp_kernel_ensemble_grouping(dev):
+    """An ensemble through the kernel as MLPDynamicsModel.predict_fn runs
+    it: the member axis as the group axis, every row repeated per member
+    (a stride-0 input), then the member mean."""
+    from learning_to_adapt_torch.models import MLPDynamicsModel
+
+    class Env:
+        obs_dim, act_dim = 20, 6
+    model = MLPDynamicsModel('dyn', Env(), hidden_sizes=(64, 64),
+                             n_members=3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    obs = torch.randn((700, 20), generator=gen, device=dev)
+    act = torch.rand((700, 6), generator=gen, device=dev) * 2 - 1
+    before = fused_mlp.fused_mlp_forward.launches
+    got = model.predict_fn(model.pack(model.params), model.normalizer, obs,
+                           act)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp_forward.launches == before + 1
+    x = torch.cat([obs, act], -1).expand(3, -1, -1)
+    want = obs + fused_mlp.fused_mlp_plain(x, model.params['w'],
+                                           model.params['b']).mean(0)
+    torch.testing.assert_close(got, want, **MLP_TOL)
+
+
 def test_fused_mlp_kernel_refuses_float64(dev):
     x, ws, bs = _mlp(dev, 2, 8, (26, 32, 20), seed=0)
     with pytest.raises(TypeError):
