@@ -73,9 +73,30 @@ Phases, each of which raises (exit code != 0) on failure:
      iteration 16: 128 steps an epoch) and 11. the ReBAL fit's on 68 train
      paths x 1000 steps (8 steps of 10 TBPTT chunks an epoch), each as in
      phase 7;
- 12. print the card line again, one JSON line describing every kernel
-     (with its launches on each algorithm's path), then the contract line
-     {"ok": true, "device": {...}} last.
+ 12. the cluster Jacobi kernel (N > 224), in the kernel phase: held
+     against the plain version on real HalfCheetahBlocksEnv contact
+     systems (5 envs x 988 rows after 30 random-action steps) and on
+     random SPD systems at N = 225, 988, 1024 and 2048 for 1 and 5 envs
+     and at N = 988 for 512 envs; its cluster shape printed; CUDA-event
+     and device time, the plain version's, the bound, and the floor of its
+     sweep chain (jacobi_study.py's barrier-only variant) at 5 and 512
+     envs. The MLP kernel is also held and timed at the arm's widths (5 x
+     500 rows, 30->512x3->23) beside the bf16 baddbmm chain;
+ 13. the new envs: run_grbal from its command line (--env, --task) for
+     HalfCheetahHFieldEnv --task hfield, HalfCheetahBlocksEnv --task
+     damping and Arm7DofEnv --task force, full width, seed 0, paths of
+     100 steps, 2 iterations (one random, one policy), in a temporary
+     directory: per policy iteration 1000 fused-MLP launches, 100 packs
+     and 1 Jacobi launch per physics step (the cluster kernel for the
+     blocks env, the tiers for the others), none from the fits; finite
+     losses and returns, progress.csv's header letter for letter that of
+     results/grbal_cheetah_hfield_tpu_r3.csv, grbal_blocks_tpu_r5.csv and
+     grbal_arm7dof_force_tpu_r4.csv, params.pkl re-creating its env; then
+     policy sampling calls on the blocks env as in phase 8 (one of 100
+     steps timed, one of 30 profiled, one of 30 watched for host waits);
+ 14. print the card line again, one JSON line describing every kernel
+     (with its launches on each algorithm's and env's path), then the
+     contract line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or of the JAX package. Without a card it exits 2
 before printing any result.
@@ -96,6 +117,7 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 MLP_DIMS = (26, 512, 512, 512, 20)    # obs 20 + act 6 -> 20
+ARM_DIMS = (30, 512, 512, 512, 23)    # the arm: obs 23 + act 7 -> 23
 N_ENVS, N_CANDIDATES, HORIZON = 5, 500, 10
 # MB-MPC (run_scripts/run_mb_mpc.py): 10 envs x 2000 candidates x horizon
 # 20 through a (512, 512) model, one weight set for every row
@@ -117,6 +139,19 @@ MB_HEADER_CSV = os.path.join(REPO, 'results', 'mb_mpc_halfcheetah_tpu_r3.csv')
 RB_HEADER_CSV = os.path.join(REPO, 'results', 'rebal_halfcheetah_tpu_r3.csv')
 JACOBI_SWEEPS = 60                    # 2 * OptionSpec.iterations
 JACOBI_WIDE_ENVS = 512                # bench.py bench_saturated's env count
+BLOCKS_ROWS = 988                     # HalfCheetahBlocksEnv's system
+CLUSTER_NS = (225, 988, 1024, 2048)   # the cluster kernel's random systems
+CLUSTER_ENVS = (1, 5)
+# the new envs' GrBAL runs: (env class, task, the JAX run's progress.csv,
+# the counter of the Jacobi kernel its system size takes)
+NEW_ENVS = (
+    ('HalfCheetahHFieldEnv', 'hfield', 'grbal_cheetah_hfield_tpu_r3.csv',
+     'jacobi_solve'),
+    ('HalfCheetahBlocksEnv', 'damping', 'grbal_blocks_tpu_r5.csv',
+     'jacobi_solve_cluster'),
+    ('Arm7DofEnv', 'force', 'grbal_arm7dof_force_tpu_r4.csv',
+     'jacobi_solve'))
+NEW_ENV_ITR = 2                       # one random, one policy iteration
 
 SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
               'cudaEventSynchronize')
@@ -191,34 +226,40 @@ def bound_ms(n_bytes, flops, peak_flops):
 
 
 def build_kernels():
-    """Build both kernels and the Jacobi floor variant; returns the
-    variant's library."""
+    """Build both kernel sources and the Jacobi kernels' floor variants
+    (one nvcc each, all at once); returns the variants' libraries (tiers,
+    cluster)."""
     import jacobi_study
     from learning_to_adapt_torch.ops import build
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        floor = pool.submit(jacobi_study.compile_variant, jacobi_study.FLOOR)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        floors = [pool.submit(jacobi_study.compile_variant, name) for name
+                  in (jacobi_study.FLOOR, jacobi_study.CLUSTER_FLOOR)]
         paths = list(pool.map(build.build, ['fused_mlp', 'jacobi']))
-        floor_lib, floor_path, _ = floor.result()
-    log(f'built {[p.name for p in paths + [floor_path]]} in '
+        floors = [f.result() for f in floors]
+    log(f'built {[p.name for p in paths + [f[1] for f in floors]]} in '
         f'{time.time() - t0:.1f} s (parallel nvcc, -gencode '
         'arch=compute_90a,code=sm_90a)')
     for name, nvcc_log in build.BUILD_LOGS.items():
         for line in nvcc_log.splitlines():
             if 'registers' in line or 'spill' in line:
                 log(f'  {name}: {line.strip()}')
-    return floor_lib
+    return tuple(f[0] for f in floors)
 
 
-def check_fused_mlp(dev):
+def check_fused_mlp(dev, dims=MLP_DIMS, what='GrBAL'):
+    """The kernel at GrBAL's planner shape (5 envs x 500 rows) for the
+    widths `dims`: per-group and stride-0 weights, packed, against the
+    plain version; timed warm and L2-flushed beside the bf16 baddbmm
+    chain, the pack timed on its own."""
     import torch
     from learning_to_adapt_torch.ops import fused_mlp as fm
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     g, r = N_ENVS, N_CANDIDATES
-    x = torch.randn((g, r, MLP_DIMS[0]), generator=gen, device=dev)
+    x = torch.randn((g, r, dims[0]), generator=gen, device=dev)
     ws, bs = [], []
-    for k, n in zip(MLP_DIMS[:-1], MLP_DIMS[1:]):
+    for k, n in zip(dims[:-1], dims[1:]):
         lim = (6.0 / (k + n)) ** 0.5
         ws.append((torch.rand((g, k, n), generator=gen, device=dev) * 2 - 1)
                   * lim)
@@ -235,9 +276,10 @@ def check_fused_mlp(dev):
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         errs.append(err)
-        log(f'fused_mlp {label}, packed weights {tuple(x.shape)} -> '
-            f'{tuple(out.shape)}: max_abs_err {err:.3e} (tolerance '
-            f'{MLP_TOL}, max|ref| {float(ref.abs().max()):.3f})')
+        log(f'fused_mlp {what} widths {dims}, {label}, packed weights '
+            f'{tuple(x.shape)} -> {tuple(out.shape)}: max_abs_err '
+            f'{err:.3e} (tolerance {MLP_TOL}, max|ref| '
+            f'{float(ref.abs().max()):.3f})')
         torch.testing.assert_close(out, ref, **MLP_TOL)
 
     packed = fm.pack_weights(ws, bs)
@@ -262,18 +304,18 @@ def check_fused_mlp(dev):
     library_ms = cuda_ms(library)
     library_device_ms = device_ms(library)
     pack_ms = cuda_ms(lambda: fm.pack_weights(ws, bs))
-    macs = sum(k * n for k, n in zip(MLP_DIMS[:-1], MLP_DIMS[1:]))
-    n_bytes = (4 * (x.numel() + g * r * MLP_DIMS[-1] +
+    macs = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+    n_bytes = (4 * (x.numel() + g * r * dims[-1] +
                     sum(b.numel() for b in bs)) +
                2 * sum(w.numel() for w in ws))     # weights read as bf16
     b_ms, b_by = bound_ms(n_bytes, 2.0 * g * r * macs, BF16_FLOP_PER_S)
     # the pack reads the f32 weights once and writes the bf16 tile stream
     pack_bound, _ = bound_ms(4 * sum(w.numel() for w in ws) +
                              2 * packed.w.numel(), 0, BF16_FLOP_PER_S)
-    log(f'fused_mlp per launch: kernel {ms:.4f} ms; L2 flushed '
-        f'{ms_cold:.4f} ms; plain {plain_ms:.4f} ms; bf16 baddbmm chain '
-        f'{library_ms:.4f} ms (device {library_device_ms:.4f} ms); bound '
-        f'{b_ms:.4f} ms ({b_by})')
+    log(f'fused_mlp per launch, {what} widths: kernel {ms:.4f} ms; L2 '
+        f'flushed {ms_cold:.4f} ms; plain {plain_ms:.4f} ms; bf16 baddbmm '
+        f'chain {library_ms:.4f} ms (device {library_device_ms:.4f} ms); '
+        f'bound {b_ms:.4f} ms ({b_by})')
     log(f'pack_weights per call: {pack_ms:.4f} ms, bound {pack_bound:.4f} ms '
         f'(bytes: {4 * sum(w.numel() for w in ws) / 1e6:.1f} MB of f32 read, '
         f'{2 * packed.w.numel() / 1e6:.1f} MB of bf16 tiles written)')
@@ -284,6 +326,15 @@ def check_fused_mlp(dev):
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 ms_cold=ms_cold, library_device_ms=library_device_ms,
                 device_ms=device_ms(kernel), floor_ms=None, ms_512=None)
+
+
+def check_fused_mlp_arm(dev):
+    """The kernel at the arm's widths (30->512x3->23) on GrBAL's planner
+    shape; returns the keys it adds to the fused_mlp entry."""
+    got = check_fused_mlp(dev, ARM_DIMS, 'Arm')
+    return {f'arm_{k}': got[k] for k in (
+        'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
+        'library_ms', 'library_device_ms')}
 
 
 def check_fused_mlp_mb_mpc(dev):
@@ -345,16 +396,18 @@ def check_fused_mlp_mb_mpc(dev):
                 mb_mpc_library_device_ms=library_device_ms)
 
 
-def contact_systems(dev):
-    """The Jacobi inputs of one real HalfCheetah physics step for 5 envs,
-    taken after 30 random-action steps (feet on the floor)."""
+def contact_systems(dev, cls_name='HalfCheetahEnv', task='cripple'):
+    """The Jacobi inputs of one real physics step of an env for 5 envs,
+    taken after 30 random-action steps (HalfCheetah's feet on the floor,
+    or on the blocks), the task drawn (episode 1)."""
     import torch
-    from learning_to_adapt_torch.envs import HalfCheetahEnv, normalize
+    from learning_to_adapt_torch import envs
     from learning_to_adapt_torch.physics import engine
-    env = normalize(HalfCheetahEnv(task='cripple', device=dev))
+    env = envs.normalize(getattr(envs, cls_name)(
+        task=task, reset_every_episode=True, device=dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    state = env.reset(N_ENVS, 0, gen)
+    state = env.reset(N_ENVS, 1, gen)
 
     def random_step(state):
         act = 2 * torch.rand((N_ENVS, env.act_dim), generator=gen,
@@ -446,6 +499,97 @@ def check_jacobi(dev, floor_lib):
                 ms_512=ms_512)
 
 
+def check_jacobi_cluster(dev, floor_lib):
+    """The cluster kernel (N > 224): on real blocks contact systems, on
+    random SPD systems from N = 225 to 2048 at 1 and 5 envs and at N = 988
+    for 512 envs; timed at the blocks shape for 5 and 512 envs beside the
+    plain version, the bound and the floor of its sweep chain."""
+    import torch
+    import jacobi_study
+    from learning_to_adapt_torch.ops import jacobi as jc
+    A, b, ainv, omega, n_sweeps = contact_systems(
+        dev, 'HalfCheetahBlocksEnv', 'damping')
+    n = A.shape[-1]
+    n_active = int((b != 0).sum())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for envs in (N_ENVS, JACOBI_WIDE_ENVS):
+        cluster, threads, rows, smem = jc.cluster_shape(n, envs, sms)
+        log(f'jacobi cluster shape, {envs} envs x N = {n}: {envs} clusters '
+            f'of {cluster} blocks x {threads} threads ({rows} rows of A per '
+            f'block, {smem} bytes of shared memory); the card holds '
+            f'{jc.cluster_occupancy(n, cluster, 4, dev)} such clusters at '
+            f'once ({sms} SMs)')
+    log(f'jacobi: HalfCheetahBlocksEnv contact systems {tuple(A.shape)}, '
+        f'{n_sweeps} sweeps, {n_active} active rows over {N_ENVS} envs, '
+        f'omega {[round(float(w), 4) for w in omega]}')
+    if n != BLOCKS_ROWS or n_sweeps != JACOBI_SWEEPS or n_active == 0:
+        raise AssertionError(f'expected {BLOCKS_ROWS} rows, 60 sweeps and '
+                             'an active contact set')
+    cases = [('blocks contact', (A, b, ainv, omega))]
+    for rows_n in CLUSTER_NS:
+        for envs in CLUSTER_ENVS:
+            cases.append((f'random SPD {envs} x {rows_n}',
+                          jacobi_study.system(dev, envs, rows_n,
+                                              seed=rows_n + envs)))
+    wide = jacobi_study.system(dev, JACOBI_WIDE_ENVS, n, seed=3)
+    cases.append((f'random SPD {JACOBI_WIDE_ENVS} x {n}', wide))
+    errs = []
+    for label, args in cases:
+        before = jc.jacobi_solve_cluster.launches
+        out = jc.jacobi_solve_cuda(*args, n_sweeps)
+        ref = jc.jacobi_solve_plain(*args, n_sweeps)
+        torch.cuda.synchronize()
+        if jc.jacobi_solve_cluster.launches != before + 1:
+            raise AssertionError(f'{label}: not the cluster kernel')
+        err = float((out - ref).abs().max())
+        errs.append(err)
+        log(f'jacobi cluster {label}: max_abs_err {err:.3e} (tolerance '
+            f'{JACOBI_TOL}, max|ref| {float(ref.abs().max()):.3e})')
+        torch.testing.assert_close(out, ref, **JACOBI_TOL)
+        if not bool((out >= 0).all()):
+            raise AssertionError('projected Jacobi returned a negative force')
+
+    def kernel(args=(A, b, ainv, omega)):
+        return jc.jacobi_solve_cluster(*args, n_sweeps)
+    ms = cuda_ms(kernel)
+    dev_ms = device_ms(kernel)
+    ms_512 = cuda_ms(lambda: kernel(wide), warmup=2, iters=5)
+    dev_ms_512 = device_ms(lambda: kernel(wide), iters=3)
+    plain_ms = cuda_ms(lambda: jc.jacobi_solve_plain(A, b, ainv, omega,
+                                                     n_sweeps))
+
+    def floor_device_ms(args, iters):
+        return jacobi_study.run_variant(
+            jacobi_study.CLUSTER_FLOOR,
+            {jacobi_study.CLUSTER_FLOOR: floor_lib},
+            lambda: device_ms(lambda: kernel(args), iters=iters))
+    floor_ms = floor_device_ms((A, b, ainv, omega), 20)
+    floor_ms_512 = floor_device_ms(wide, 3)
+    n_bytes = 4 * (A.numel() + 3 * b.numel() + omega.numel())
+    flops = n_sweeps * N_ENVS * n * (2 * n + 5)
+    b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
+    bytes_ms, _ = bound_ms(n_bytes, 0, F32_FLOP_PER_S)
+    log(f'jacobi cluster per launch, {N_ENVS} envs x {n} rows: kernel '
+        f'{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, '
+        f'bound {b_ms:.4f} ms ({b_by}: {flops / 1e6:.0f} MFLOP at 67 TFLOP/s;'
+        f' bytes {bytes_ms:.4f} ms for {n_bytes / 1e6:.1f} MB); floor of the '
+        f'chain of {n_sweeps} dependent sweeps (gather and cluster barrier '
+        f'only, device) {floor_ms:.4f} ms, kernel/floor '
+        f'{dev_ms / floor_ms:.2f}; L2 reads of A '
+        f'{n_sweeps * A.numel() * 4 / dev_ms / 1e6:.0f} GB/s')
+    log(f'jacobi cluster per launch, {JACOBI_WIDE_ENVS} envs x {n} rows: '
+        f'kernel {ms_512:.4f} ms (device {dev_ms_512:.4f} ms), floor '
+        f'(device) {floor_ms_512:.4f} ms')
+    return dict(name='jacobi_solve_cluster', route='cuda',
+                source='learning_to_adapt_torch/csrc/jacobi.cu',
+                replaces='learning_to_adapt_tpu/ops/pallas_jacobi.py:73',
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_cold=None,
+                library_device_ms=None, device_ms=dev_ms, floor_ms=floor_ms,
+                ms_512=ms_512, device_ms_512=dev_ms_512,
+                floor_ms_512=floor_ms_512)
+
+
 def main_path(dev, card):
     import numpy as np
     import torch
@@ -497,7 +641,8 @@ def main_path(dev, card):
     if np.abs(paths['actions']).max() > 1.0:
         raise AssertionError('planner actions outside [-1, 1]')
     want = dict(fused_mlp=HORIZON * PATH_LEN,
-                jacobi_solve=env.frame_skip * PATH_LEN)
+                jacobi_solve=env.frame_skip * PATH_LEN,
+                jacobi_solve_cluster=0)
     log(f'policy sampling launches {launches}, expected {want}; weight '
         f'packs {packs}, expected {PATH_LEN}')
     if launches != want:
@@ -560,7 +705,7 @@ def profile_policy_steps(dev, sampler):
                if e.device_type == DeviceType.CPU and e.name == 'rollout.pack']
     log(f'profile rollout.pack: {len(pack_us)} packs, device time '
         f'{sum(pack_us) / 1e3 / PROFILE_LEN:.4f} ms per step')
-    for kernel in ('fused_mlp_kernel', 'jacobi_kernel'):
+    for kernel in KERNEL_NAMES:
         runs = [e.time_range.elapsed_us() for e in on_device
                 if kernel in e.name]
         log(f'profile {kernel}: {len(runs)} launches, device time '
@@ -622,7 +767,8 @@ def counters():
     from learning_to_adapt_torch.ops import fused_mlp, jacobi
     return dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
                 pack=fused_mlp.pack_weights.calls,
-                jacobi_solve=jacobi.jacobi_solve.launches)
+                jacobi_solve=jacobi.jacobi_solve.launches,
+                jacobi_solve_cluster=jacobi.jacobi_solve_cluster.launches)
 
 
 def zero_counters():
@@ -630,6 +776,12 @@ def zero_counters():
     fused_mlp.fused_mlp_forward.launches = 0
     fused_mlp.pack_weights.calls = 0
     jacobi.jacobi_solve.launches = 0
+    jacobi.jacobi_solve_cluster.launches = 0
+
+
+#: the kernels' names in a profiler trace
+KERNEL_NAMES = ('fused_mlp_kernel', 'jacobi_kernel', 'jacobi_cluster_kernel')
+NO_LAUNCH = dict(fused_mlp=0, pack=0, jacobi_solve=0, jacobi_solve_cluster=0)
 
 
 @contextlib.contextmanager
@@ -695,8 +847,7 @@ def check_trainer_launches(policy_itr, record, total, resume_record,
     sampling call, only the Jacobi launches in the random one, nothing
     from the fit, and no launch outside those calls."""
     want = {'random': dict(policy_itr, fused_mlp=0, pack=0),
-            'policy': policy_itr,
-            'fit': dict(fused_mlp=0, pack=0, jacobi_solve=0)}
+            'policy': policy_itr, 'fit': NO_LAUNCH}
     labels = ['random', 'fit'] + ['policy', 'fit'] * (TRAIN_ITR - 1)
     for name, rec, tot, want_labels in (
             ('run', record, total, labels),
@@ -796,8 +947,8 @@ def grbal_trainer_phase(dev, card):
     return trainer_phase(
         dev, card, run_grbal.ENTRY, cfg, HEADER_CSV,
         ('Pre-Loss', 'Post-Loss'),
-        lambda fs: dict(fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
-                        jacobi_solve=fs * PATH_LEN))
+        lambda fs: dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN,
+                        pack=PATH_LEN, jacobi_solve=fs * PATH_LEN))
 
 
 def mb_mpc_trainer_phase(dev, card):
@@ -813,7 +964,7 @@ def mb_mpc_trainer_phase(dev, card):
     per_itr, total, trainer = trainer_phase(
         dev, card, run_mb_mpc.ENTRY, cfg, MB_HEADER_CSV,
         ('TrainLoss', 'ValidLoss'),
-        lambda fs: dict(fused_mlp=MB_HORIZON * t_len, pack=1,
+        lambda fs: dict(NO_LAUNCH, fused_mlp=MB_HORIZON * t_len, pack=1,
                         jacobi_solve=fs * t_len))
     sampling_profile(trainer.sampler, 'MB-MPC', card)
     return per_itr, total, trainer
@@ -830,7 +981,7 @@ def rebal_trainer_phase(dev, card):
                max_path_length=PATH_LEN, resume=False, profile=False)
     per_itr, total, trainer = trainer_phase(
         dev, card, run_rebal.ENTRY, cfg, RB_HEADER_CSV, ('TrainLoss',),
-        lambda fs: dict(fused_mlp=0, pack=0, jacobi_solve=fs * PATH_LEN))
+        lambda fs: dict(NO_LAUNCH, jacobi_solve=fs * PATH_LEN))
     sampling_profile(trainer.sampler, 'ReBAL', card)
     return per_itr, total, trainer
 
@@ -850,7 +1001,8 @@ def sampling_profile(sampler, what, card):
     sampler.obtain_samples()
     wall = sampler.last_seconds
     n = PROFILE_LEN
-    short = Sampler(sampler.env, sampler.policy, m, n, seed=1,
+    short = Sampler(sampler.env, sampler.policy, m, n,
+                    adapt_batch_size=sampler.adapt_batch_size, seed=1,
                     device=sampler.device)
     short.obtain_samples()                          # warm-up
     with profile(activities=[ProfilerActivity.CPU,
@@ -863,7 +1015,7 @@ def sampling_profile(sampler, what, card):
                  and not getattr(e, 'is_user_annotation', False)]
     device_us = sum(e.time_range.elapsed_us() for e in on_device)
     per_kernel = {}
-    for kernel in ('fused_mlp_kernel', 'jacobi_kernel'):
+    for kernel in KERNEL_NAMES:
         runs = [e.time_range.elapsed_us() for e in on_device
                 if kernel in e.name]
         per_kernel[kernel] = dict(
@@ -881,6 +1033,79 @@ def sampling_profile(sampler, what, card):
         'kernels ' + json.dumps(per_kernel))
     watch_host_syncs(short.obtain_samples, n,
                      f'one {n}-step {what} policy sampling call')
+
+
+def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key):
+    """Phase 13, one env: run_grbal from its command line (--env, --task)
+    at full width, paths of 100 steps, NEW_ENV_ITR iterations, in a
+    temporary directory. Returns (launches of the policy iteration, the
+    trainer)."""
+    import math
+    import pickle
+    from learning_to_adapt_torch import run_grbal
+    cfg = run_grbal.config_from_args(run_grbal.parse_args(
+        ['--env', cls_name, '--task', task, '--n_itr', str(NEW_ENV_ITR),
+         '--seed', '0', '--exp_name', 'chip_smoke', '--device', str(dev)]))
+    cfg['max_path_length'] = PATH_LEN
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.time()
+            record = []
+            trainer, total = run_trainer(run_grbal.ENTRY, cfg, record)
+            run_s = time.time() - t0
+            exp_dir = run_grbal.ENTRY.experiment_dir(cfg)
+            header, rows = read_progress(exp_dir)
+            with open(os.path.join(exp_dir, 'params.pkl'), 'rb') as f:
+                snap = pickle.load(f)
+        finally:
+            os.chdir(cwd)
+    with open(os.path.join(REPO, 'results', header_name)) as f:
+        want_header = f.readline()
+    if header != want_header:
+        raise AssertionError(f'{cls_name}: progress.csv header {header!r} != '
+                             f'the JAX run\'s {want_header!r}')
+    for r in rows:
+        for k in ('Pre-Loss', 'Post-Loss', 'EnvTrajs-AverageReturn'):
+            if not math.isfinite(float(r[k])):
+                raise AssertionError(f'{cls_name} itr {r["Itr"]}: {k} = '
+                                     f'{r[k]}')
+    if [int(r['Itr']) for r in rows] != list(range(NEW_ENV_ITR)):
+        raise AssertionError(f'itrs {[r["Itr"] for r in rows]}')
+    env = snap['env'].wrapped_env
+    if not (type(env).__name__ == cls_name and env.task == task
+            and snap['itr'] == NEW_ENV_ITR - 1):
+        raise AssertionError(f'{cls_name}: params.pkl did not re-create its '
+                             'env')
+    physics = trainer.env.wrapped_env.frame_skip * PATH_LEN
+    policy = dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
+                  **{jacobi_key: physics})
+    want = {'random': dict(policy, fused_mlp=0, pack=0), 'policy': policy,
+            'fit': NO_LAUNCH}
+    got = [what for what, _ in record]
+    if got != ['random', 'fit', 'policy', 'fit']:
+        raise AssertionError(f'{cls_name}: calls {got}')
+    for what, counts in record:
+        if counts != want[what]:
+            raise AssertionError(f'{cls_name}, {what}: launches {counts} != '
+                                 f'{want[what]}')
+    if total != {k: sum(c[k] for _, c in record) for k in total}:
+        raise AssertionError(f'{cls_name}: launches outside sampling and fit')
+    log(f'new env: run_grbal --env {cls_name} --task {task} (seed 0, '
+        f'{cfg["num_rollouts"]} envs x {PATH_LEN} steps, {NEW_ENV_ITR} itrs, '
+        f'{cfg["dynamic_model_epochs"]} epochs max) on {card}: '
+        f'{run_s:.1f} s; launches per call {json.dumps(record)}')
+    for r in rows:
+        diag = {k: round(float(r[k]), 4) for k in r
+                if k.startswith('EnvTrajs-') and 'Return' not in k}
+        log(f'  itr {r["Itr"]}: Time-EnvSampling '
+            f'{float(r["Time-EnvSampling"]):.3f} s, Time-ModelFit '
+            f'{float(r["Time-ModelFit"]):.3f} s, Epochs {r["Epochs"]}, '
+            f'Pre-Loss {float(r["Pre-Loss"]):.5f}, Post-Loss '
+            f'{float(r["Post-Loss"]):.5f}, AverageReturn '
+            f'{float(r["EnvTrajs-AverageReturn"]):.2f}, {json.dumps(diag)}')
+    return policy, trainer
 
 
 def fit_data(model, n_paths, gen):
@@ -1110,9 +1335,11 @@ def main():
     def stamp(what):
         log(f'elapsed {time.time() - t_start:.1f} s: {what}')
 
-    floor_lib = build_kernels()
-    kernels = [check_fused_mlp(dev), check_jacobi(dev, floor_lib)]
+    floor_lib, cluster_floor_lib = build_kernels()
+    kernels = [check_fused_mlp(dev), check_jacobi(dev, floor_lib),
+               check_jacobi_cluster(dev, cluster_floor_lib)]
     kernels[0].update(check_fused_mlp_mb_mpc(dev))
+    kernels[0].update(check_fused_mlp_arm(dev))
     stamp('kernels')
     launches, sampler = main_path(dev, card)
     profile_policy_steps(dev, sampler)
@@ -1133,21 +1360,40 @@ def main():
     mb_mpc_fit_phase(mb_trainer.dynamics_model, card)
     rebal_fit_phase(rb_trainer.dynamics_model, card)
     stamp('MB-MPC and ReBAL fits')
+    env_itr = {}
+    for cls_name, task, header, jacobi_key in NEW_ENVS:
+        env_itr[cls_name], env_trainer = new_env_phase(
+            dev, card, cls_name, task, header, jacobi_key)
+        stamp(f'GrBAL on {cls_name}')
+        if cls_name == 'HalfCheetahBlocksEnv':
+            sampling_profile(env_trainer.sampler, 'GrBAL blocks', card)
+            stamp('GrBAL blocks sampling profile')
     for k in kernels:
-        k['launches'] = per_policy_itr[k['name']]
+        # the cluster kernel's main path is the blocks env's
+        k['launches'] = (env_itr['HalfCheetahBlocksEnv'][k['name']]
+                         if k['name'] == 'jacobi_solve_cluster'
+                         else per_policy_itr[k['name']])
         k['trainer_launches'] = trainer_total[k['name']]
         k['mb_mpc_launches'] = mb_itr[k['name']]
         k['rebal_launches'] = rb_itr[k['name']]
         k['mb_mpc_trainer_launches'] = mb_total[k['name']]
         k['rebal_trainer_launches'] = rb_total[k['name']]
+        for cls_name, key in (('HalfCheetahHFieldEnv', 'hfield_launches'),
+                              ('HalfCheetahBlocksEnv', 'blocks_launches'),
+                              ('Arm7DofEnv', 'arm_launches')):
+            k[key] = env_itr[cls_name][k['name']]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
             'library_device_ms', 'device_ms', 'floor_ms', 'ms_512',
+            'device_ms_512', 'floor_ms_512',
             'trainer_launches', 'mb_mpc_launches', 'rebal_launches',
             'mb_mpc_trainer_launches', 'rebal_trainer_launches',
+            'hfield_launches', 'blocks_launches', 'arm_launches',
             'mb_mpc_max_abs_err', 'mb_mpc_ms', 'mb_mpc_device_ms',
             'mb_mpc_plain_ms', 'mb_mpc_bound_ms', 'mb_mpc_library_ms',
-            'mb_mpc_library_device_ms')
+            'mb_mpc_library_device_ms', 'arm_max_abs_err', 'arm_ms',
+            'arm_device_ms', 'arm_plain_ms', 'arm_bound_ms',
+            'arm_library_ms', 'arm_library_device_ms')
     log(f'total {time.time() - t_start:.1f} s')
     log(card_line())
     log(json.dumps({'kernels': [{k: kern.get(k) for k in keys}

@@ -27,8 +27,21 @@ sampling width), by the kernel's own device time in a torch.profiler window:
                   where named; each also with no row products (`_handshake`,
                   the chain floor of that launch shape)
 
+The cluster kernel (N > 224) is timed at the blocks env's N = 988 for 5
+and 512 envs, as it is (`kept`) and as:
+
+  cluster_barrier_only  no rows of A: each sweep still gathers f from the
+                  cluster's blocks, sums across a warp, writes the new f and
+                  meets the cluster barrier (the floor of its sweep chain)
+  cluster_unroll8 eight 16-byte loads of a row in flight per lane, not four
+  cluster_pairs   two rows a warp at a time (their loads interleaved), and
+  cluster_pairs8  with eight loads of each in flight
+  cluster_c8      clusters of 8 blocks at 5 envs too (the kept launch takes
+                  16 while every env's cluster fits the card at once)
+
 Variants that change the arithmetic (handshake_only, no_barrier,
-prologue_only) compute wrong results and are timed only. The substitutions
+prologue_only, cluster_barrier_only) compute wrong results and are timed
+only. The substitutions
 match the kernel's text exactly, so an edit of a line they match makes this
 script raise until they follow it. Prints the card (name, power limit)
 first, then per variant the registers and spills of the instantiation it
@@ -46,6 +59,7 @@ from learning_to_adapt_torch.ops import build
 from learning_to_adapt_torch.ops import jacobi as jc
 
 N, SWEEPS = 76, 60
+N_CLUSTER = 988
 ENV_COUNTS = (5, 512)
 
 _PRODUCT = ('''#pragma unroll
@@ -54,6 +68,83 @@ _PRODUCT = ('''#pragma unroll
 ''', '''      acc[0] = fv[r % kCols];
 ''')
 _BARRIER = ('    __syncthreads();\n    cur ^= 1;', '    cur ^= 1;')
+_UNROLL8 = ('#pragma unroll 4\n    for (int k = lane; k < n / 4; k += 32) {',
+            '#pragma unroll 8\n    for (int k = lane; k < n / 4; k += 32) {')
+_PAIR_DOT = ('// Dynamic shared memory: f_all[n]', """// Two rows at once.
+template <int kVec>
+__device__ __forceinline__ float2 row_dot2(const float* __restrict__ A0,
+                                           const float* __restrict__ A1,
+                                           const float* f, int n, int lane) {
+  float a0 = 0.f, a1 = 0.f, c0 = 0.f, c1 = 0.f;
+  if constexpr (kVec == 4) {
+    const float4* p4 = reinterpret_cast<const float4*>(A0);
+    const float4* q4 = reinterpret_cast<const float4*>(A1);
+    const float4* f4 = reinterpret_cast<const float4*>(f);
+#pragma unroll 4
+    for (int k = lane; k < n / 4; k += 32) {
+      const float4 p = __ldcg(p4 + k);
+      const float4 q = __ldcg(q4 + k);
+      const float4 x = f4[k];
+      a0 = fmaf(p.x, x.x, a0);
+      a1 = fmaf(p.y, x.y, a1);
+      a0 = fmaf(p.z, x.z, a0);
+      a1 = fmaf(p.w, x.w, a1);
+      c0 = fmaf(q.x, x.x, c0);
+      c1 = fmaf(q.y, x.y, c1);
+      c0 = fmaf(q.z, x.z, c0);
+      c1 = fmaf(q.w, x.w, c1);
+    }
+  } else {
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32) {
+      a0 = fmaf(__ldcg(A0 + k), f[k], a0);
+      c0 = fmaf(__ldcg(A1 + k), f[k], c0);
+    }
+  }
+  return make_float2(a0 + a1, c0 + c1);
+}
+
+// Dynamic shared memory: f_all[n]""")
+_PAIR_LOOP = ("""    for (int r = warp; r < mine; r += n_warps) {
+      const int row = row0 + r;
+      const float* Ar = Ae + static_cast<size_t>(row) * n;
+      float sum = row_dot<kVec>(Ar, f_all, n, lane);
+#pragma unroll
+      for (int m = 16; m > 0; m /= 2) sum += __shfl_xor_sync(kFull, sum, m);
+      if (lane == 0) {
+        const size_t idx = static_cast<size_t>(e) * n + row;
+        const float f_old = slice[cur * rows + r];
+        slice[(cur ^ 1) * rows + r] = fmaxf(
+            f_old - w * (sum + __ldg(b + idx)) * __ldg(aii_inv + idx), 0.f);
+      }
+    }""", """    for (int r = warp; r < mine; r += 2 * n_warps) {
+      const int rr[2] = {r, min(r + n_warps, mine - 1)};
+      float2 s2 = row_dot2<kVec>(Ae + static_cast<size_t>(row0 + rr[0]) * n,
+                                 Ae + static_cast<size_t>(row0 + rr[1]) * n,
+                                 f_all, n, lane);
+#pragma unroll
+      for (int m = 16; m > 0; m /= 2) {
+        s2.x += __shfl_xor_sync(kFull, s2.x, m);
+        s2.y += __shfl_xor_sync(kFull, s2.y, m);
+      }
+      const float sums[2] = {s2.x, s2.y};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (lane == 0 && (j == 0 || r + n_warps < mine)) {
+          const size_t idx = static_cast<size_t>(e) * n + row0 + rr[j];
+          const float f_old = slice[cur * rows + rr[j]];
+          slice[(cur ^ 1) * rows + rr[j]] = fmaxf(
+              f_old - w * (sums[j] + __ldg(b + idx)) * __ldg(aii_inv + idx),
+              0.f);
+        }
+      }
+    }""")
+_PAIR_UNROLL8 = ('#pragma unroll 4\n    for (int k = lane; k < n / 4; '
+                 'k += 32) {\n      const float4 p',
+                 '#pragma unroll 8\n    for (int k = lane; k < n / 4; '
+                 'k += 32) {\n      const float4 p')
+_ROW_DOT = ('      float sum = row_dot<kVec>(Ar, f_all, n, lane);',
+            '      float sum = f_all[row];')
 _COLUMN = '  return part + kT * k;'
 _CONTIGUOUS = (_COLUMN, '  return part * kCols + k;')
 _QUADS = (_COLUMN, '  return 4 * part + 4 * kT * (k / 4) + k % 4;')
@@ -91,9 +182,20 @@ VARIANTS = {
        for name, (shape, subs) in SHAPES.items()},
     **{f'{name}_handshake': _tier(*shape, subs=subs + [_PRODUCT])
        for name, (shape, subs) in SHAPES.items()},
+    'cluster_barrier_only': ([_ROW_DOT], SWEEPS, jc.TIERS),
+    'cluster_unroll8': ([_UNROLL8], SWEEPS, jc.TIERS),
+    'cluster_pairs': ([_PAIR_DOT, _PAIR_LOOP], SWEEPS, jc.TIERS),
+    'cluster_pairs8': ([_PAIR_DOT, _PAIR_LOOP, _PAIR_UNROLL8], SWEEPS,
+                       jc.TIERS),
+    'cluster_c8': ([], SWEEPS, jc.TIERS),
 }
 #: the variant whose time is the floor of the sweep chain
 FLOOR = 'handshake_only'
+#: the same for the cluster kernel
+CLUSTER_FLOOR = 'cluster_barrier_only'
+#: variants timed through the cluster kernel at N_CLUSTER rows
+CLUSTER_VARIANTS = ('kept', CLUSTER_FLOOR, 'cluster_unroll8',
+                    'cluster_pairs', 'cluster_pairs8', 'cluster_c8')
 
 
 def variant_source(name):
@@ -155,8 +257,11 @@ def kernel_device_ms(fn, iters=100):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    runs = [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == DeviceType.CUDA and 'jacobi' in e.name]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    runs = [e.time_range.elapsed_us() for e in events if 'jacobi' in e.name]
+    if not runs:
+        raise RuntimeError('no Jacobi kernel in the profile; device events: '
+                           f'{sorted({e.name[:80] for e in events})}')
     return sum(runs) / len(runs) / 1e3
 
 
@@ -193,16 +298,20 @@ def main():
         built = dict(zip(VARIANTS, pool.map(compile_variant, VARIANTS)))
     libs = {name: lib for name, (lib, _, _) in built.items()}
     for name, (_, path, nvcc_log) in built.items():
+        if name != 'kept' and name in CLUSTER_VARIANTS:
+            continue
         shape = run_variant(name, libs, lambda: jc.launch_shape(N))
         print(f'{name}: tier {shape[:3]} (threads per row, columns, rows '
               f'per thread), {shape[3]} threads; '
               f'{_instantiation(path, nvcc_log, *shape[:3])}')
 
     times = {}
+    tiers = [v for v in VARIANTS if v == 'kept' or
+             v not in CLUSTER_VARIANTS]
     for n_envs in ENV_COUNTS:
         args = system(dev, n_envs, N, seed=n_envs)
         ref = jc.jacobi_solve_plain(*args, SWEEPS)
-        for name in list(VARIANTS) + list(VARIANTS)[::-1]:  # two passes
+        for name in tiers + tiers[::-1]:  # two passes
             sweeps = VARIANTS[name][1]
 
             def launch():
@@ -213,8 +322,27 @@ def main():
                 return err, kernel_device_ms(launch)
             err, ms = run_variant(name, libs, measure)
             times.setdefault((name, n_envs), [err]).append(ms)
+        cargs = system(dev, n_envs, N_CLUSTER, seed=n_envs)
+        cref = jc.jacobi_solve_plain(*cargs, SWEEPS)
+        for name in CLUSTER_VARIANTS + CLUSTER_VARIANTS[::-1]:
+
+            def measure():
+                def launch():
+                    return jc.jacobi_solve_cluster(*cargs, SWEEPS)
+                err = float((launch() - cref).abs().max())
+                return err, kernel_device_ms(launch)
+            shape = jc.cluster_shape
+            if name == 'cluster_c8':
+                jc.cluster_shape = lambda n, e, sms: shape(n, e, 0)
+            try:
+                err, ms = run_variant(name, libs, measure)
+            finally:
+                jc.cluster_shape = shape
+            times.setdefault((name + '@cluster', n_envs), [err]).append(ms)
+            print(f'{name}@cluster E={n_envs}: {ms:.5f} ms', flush=True)
     for (name, n_envs), (err, *ms) in times.items():
-        print(f'{name:15s} E={n_envs:3d} N={N} {VARIANTS[name][1]} sweeps: '
+        n = N_CLUSTER if name.endswith('@cluster') else N
+        print(f'{name:15s} E={n_envs:3d} N={n} {SWEEPS} sweeps: '
               f'device ms per launch {" ".join(f"{m:.5f}" for m in ms)} '
               f'(max_abs_err vs 60 plain sweeps {err:.2e})')
 

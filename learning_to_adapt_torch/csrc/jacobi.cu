@@ -33,6 +33,25 @@
 // chain, set the time. kT, kCols and kRows are template constants, so the
 // sweep unrolls fully; each launch tier is one instantiation, chosen on the
 // host from N (learning_to_adapt_torch/ops/jacobi.py, TIERS).
+//
+// Above the largest tier (N > 224) A no longer fits one SM: at the blocks
+// env's 988 rows it is 3.9 MB of f32 per env, beyond a block's registers
+// and its 227 KB of shared memory. That path, jacobi_cluster_kernel, runs
+// one thread-block cluster of C blocks per env (C = 16, or the portable 8
+// when 16 per env would not fit the card at once; ops/jacobi.py
+// cluster_shape). Block `rank` owns rows [rank R, rank R + R), R = ceil(N /
+// C), and keeps their f, double-buffered, in its shared memory. A sweep:
+// gather the whole f from the cluster's blocks through distributed shared
+// memory into a local copy; stream the block's rows of A from L2 (5 envs x
+// 3.9 MB fit the 50 MB L2), a warp per row, 16-byte coalesced loads where
+// N % 4 == 0, dot them with the local f and write the new f of each row
+// into the other buffer; one cluster barrier. The buffer written this
+// sweep is read only after the barrier and the one read this sweep is
+// written only after the next, so one barrier per sweep suffices. What
+// bounds it is the L2 stream (each block re-reads its R x N slice of A
+// every sweep) and the cluster barrier; jacobi_study.py times the barrier
+// and gather alone as the floor of its sweep chain.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -160,6 +179,141 @@ int launch(const float* A, const float* b, const float* aii_inv,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kClusterMax = 16;  // the largest cluster cluster_shape picks
+
+// One row of A (N floats from Ar) dotted with the gathered f, by the 32
+// lanes of a warp: a lane's partial sum (the caller reduces across lanes).
+template <int kVec>
+__device__ __forceinline__ float row_dot(const float* __restrict__ Ar,
+                                         const float* f, int n, int lane) {
+  float acc0 = 0.f, acc1 = 0.f;
+  if constexpr (kVec == 4) {
+    const float4* a4 = reinterpret_cast<const float4*>(Ar);
+    const float4* f4 = reinterpret_cast<const float4*>(f);
+#pragma unroll 4
+    for (int k = lane; k < n / 4; k += 32) {
+      const float4 a = __ldcg(a4 + k);
+      const float4 x = f4[k];
+      acc0 = fmaf(a.x, x.x, acc0);
+      acc1 = fmaf(a.y, x.y, acc1);
+      acc0 = fmaf(a.z, x.z, acc0);
+      acc1 = fmaf(a.w, x.w, acc1);
+    }
+  } else {
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32) acc0 = fmaf(__ldcg(Ar + k), f[k], acc0);
+  }
+  return acc0 + acc1;
+}
+
+// Dynamic shared memory: f_all[n] (this sweep's whole f, gathered), then
+// slice[2][rows] (the block's own rows of f, double-buffered).
+template <int kVec>
+__global__ void __launch_bounds__(512)
+    jacobi_cluster_kernel(const float* __restrict__ A,
+                          const float* __restrict__ b,
+                          const float* __restrict__ aii_inv,
+                          const float* __restrict__ omega,
+                          float* __restrict__ out, int n, int n_sweeps,
+                          int rows) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* f_all = reinterpret_cast<float*>(smem4);
+  float* slice = f_all + n;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int e = blockIdx.x / static_cast<int>(cluster.num_blocks());
+  const int row0 = rank * rows;
+  const int mine = max(0, min(rows, n - row0));
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;
+  const float* Ae = A + static_cast<size_t>(e) * n * n;
+  const float w = __ldg(omega + e);
+
+  for (int i = threadIdx.x; i < 2 * rows; i += blockDim.x) slice[i] = 0.f;
+  cluster.sync();  // every block's f = 0 before anyone gathers it
+
+  int cur = 0;
+  for (int s = 0; s < n_sweeps; ++s) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int owner = i / rows;
+      const float* peer = cluster.map_shared_rank(slice, owner);
+      f_all[i] = peer[cur * rows + i - owner * rows];
+    }
+    __syncthreads();
+    for (int r = warp; r < mine; r += n_warps) {
+      const int row = row0 + r;
+      const float* Ar = Ae + static_cast<size_t>(row) * n;
+      float sum = row_dot<kVec>(Ar, f_all, n, lane);
+#pragma unroll
+      for (int m = 16; m > 0; m /= 2) sum += __shfl_xor_sync(kFull, sum, m);
+      if (lane == 0) {
+        const size_t idx = static_cast<size_t>(e) * n + row;
+        const float f_old = slice[cur * rows + r];
+        slice[(cur ^ 1) * rows + r] = fmaxf(
+            f_old - w * (sum + __ldg(b + idx)) * __ldg(aii_inv + idx), 0.f);
+      }
+    }
+    cluster.sync();
+    cur ^= 1;
+  }
+  for (int r = threadIdx.x; r < mine; r += blockDim.x)
+    out[static_cast<size_t>(e) * n + row0 + r] = slice[cur * rows + r];
+}
+
+template <int kVec>
+cudaError_t cluster_attributes(int cluster, size_t smem) {
+  const auto kernel = jacobi_cluster_kernel<kVec>;
+  cudaError_t err = cudaSuccess;
+  if (cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  return err;
+}
+
+cudaLaunchConfig_t cluster_config(int n_envs, int cluster, int threads,
+                                  size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_envs * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int kVec>
+int launch_cluster(const float* A, const float* b, const float* aii_inv,
+                   const float* omega, float* out, int n_envs, int n,
+                   int n_sweeps, int cluster, int threads,
+                   cudaStream_t stream) {
+  if (cluster < 1 || cluster > kClusterMax || threads % 32 != 0 ||
+      threads > 512 || (kVec == 4 && n % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (n + cluster - 1) / cluster;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(n) + 2 * rows);
+  cudaError_t err = cluster_attributes<kVec>(cluster, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(n_envs, cluster, threads, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, jacobi_cluster_kernel<kVec>, A, b, aii_inv,
+                           omega, out, n, n_sweeps, rows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -191,6 +345,49 @@ int jacobi_solve(const void* A, const void* b, const void* aii_inv,
   JACOBI_TIER(4, 56, 2)
 #undef JACOBI_TIER
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The large-N path: the same arguments and result as jacobi_solve, for any
+// n, launched as n_envs clusters of `cluster` blocks of `threads` threads
+// (ops/jacobi.py cluster_shape). vec 4 takes 16-byte loads of A, and needs
+// n % 4 == 0 and A 16-byte aligned; vec 1 takes any n.
+int jacobi_solve_cluster(const void* A, const void* b, const void* aii_inv,
+                         const void* omega, void* out, int n_envs, int n,
+                         int n_sweeps, int cluster, int threads, int vec,
+                         void* stream) {
+  const auto* a = static_cast<const float*>(A);
+  const auto* bv = static_cast<const float*>(b);
+  const auto* ai = static_cast<const float*>(aii_inv);
+  const auto* w = static_cast<const float*>(omega);
+  auto* f = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return launch_cluster<4>(a, bv, ai, w, f, n_envs, n, n_sweeps, cluster,
+                             threads, s);
+  if (vec == 1)
+    return launch_cluster<1>(a, bv, ai, w, f, n_envs, n, n_sweeps, cluster,
+                             threads, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters of this shape the card can hold at once
+// (cudaOccupancyMaxActiveClusters), written to *active; returns the
+// cudaError_t of the query. 0 clusters means the shape cannot launch.
+int jacobi_cluster_occupancy(int n, int cluster, int threads, int vec,
+                             int* active) {
+  const int rows = (n + cluster - 1) / cluster;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(n) + 2 * rows);
+  cudaError_t err = vec == 4 ? cluster_attributes<4>(cluster, smem)
+                             : cluster_attributes<1>(cluster, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(cluster, cluster, threads, smem, nullptr, &attr);
+  err = vec == 4 ? cudaOccupancyMaxActiveClusters(
+                       active, jacobi_cluster_kernel<4>, &cfg)
+                 : cudaOccupancyMaxActiveClusters(
+                       active, jacobi_cluster_kernel<1>, &cfg);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -1,4 +1,7 @@
-"""Environments (HalfCheetah in this slice of the port)."""
+"""Environments: HalfCheetah (nominal or crippled, on terrain, on blocks)
+and the 7-DoF arm."""
+from learning_to_adapt_torch.envs.arm import Arm7DofEnv  # noqa: F401
 from learning_to_adapt_torch.envs.base import (  # noqa: F401
     EnvState, NormalizedEnv, TorchEnv, normalize)
-from learning_to_adapt_torch.envs.half_cheetah import HalfCheetahEnv  # noqa: F401
+from learning_to_adapt_torch.envs.half_cheetah import (  # noqa: F401
+    HalfCheetahBlocksEnv, HalfCheetahEnv, HalfCheetahHFieldEnv)

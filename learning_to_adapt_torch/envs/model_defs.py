@@ -1,12 +1,14 @@
 """Programmatic model definitions.
 
-The HalfCheetah spec, transcribed from the same model facts as
-learning_to_adapt_tpu/envs/model_defs.py (masses, lengths, gains). The other
-environments' specs follow in later slices of the port.
+The specs of the Euler-integrated environments (HalfCheetah, its terrain
+and blocks variants, the 7-DoF arm), transcribed from the same model facts
+as learning_to_adapt_tpu/envs/model_defs.py (masses, lengths, gains). The
+Ant's spec follows with its free joint and RK4 in a later slice of the port.
 """
 from learning_to_adapt_torch.physics.spec import (
-    CAPSULE, EULER, HINGE, PLANE, SLIDE, ActuatorSpec, BodySpec, GeomSpec,
-    JointSpec, ModelSpec, OptionSpec, compile_spec)
+    BOX, CAPSULE, EULER, HFIELD, HINGE, PLANE, SLIDE, SPHERE, ActuatorSpec,
+    BodySpec, GeomSpec, HFieldSpec, JointSpec, ModelSpec, OptionSpec,
+    compile_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -33,7 +35,8 @@ def _cheetah_joint(**kw):
 
 
 def _cheetah_tree(torso_z=0.7):
-    """The cheetah body tree."""
+    """The cheetah body tree shared by the three cheetah environments; the
+    terrain variant spawns higher (torso z = 1)."""
     bfoot = BodySpec(
         name='bfoot', pos=(-.28, 0, -.14),
         joints=[_cheetah_joint(name='bfoot', range=(-.4, .785),
@@ -114,8 +117,181 @@ def half_cheetah_spec() -> ModelSpec:
         settotalmass=14.0)
 
 
+def half_cheetah_hfield_spec() -> ModelSpec:
+    """Cheetah on a procedural heightfield; the terrain profile is runtime
+    data (MutableModel.hfield_row / hfield_size), on a 528 x 500 grid
+    (profile along x, constant along y)."""
+    floor = GeomSpec(type=HFIELD, name='floor', pos=(0, 0, 0), contype=1,
+                     conaffinity=1, condim=3, friction=(0.4, 0.1, 0.1),
+                     solref=(0.02, 1.0), solimp=(0.0, 0.8, 0.01),
+                     hfield='floor')
+    return ModelSpec(
+        name='half_cheetah_hfield',
+        option=OptionSpec(timestep=0.01, gravity=(0, 0, -9.81),
+                          integrator=EULER),
+        world_geoms=[floor],
+        bodies=[_cheetah_tree(torso_z=1.0)],
+        actuators=_cheetah_actuators(),
+        hfields=[HFieldSpec(name='floor', nrow=528, ncol=500,
+                            size=(10, 10, 0.1, 0.1))],
+        settotalmass=14.0)
+
+
+def half_cheetah_blocks_spec() -> ModelSpec:
+    """Cheetah walking over 8 spring-loaded blocks (the 'damping' task
+    randomizes the first 8 dof dampings)."""
+    blocks = []
+    layout = [(-8.0, 5.999), (0.0, 1.999), (4.0, 1.999), (8.0, 1.999),
+              (12.0, 1.999), (16.0, 1.999), (20.0, 1.999), (42.0, 19.999)]
+    for i, (x, w) in enumerate(layout):
+        blocks.append(BodySpec(
+            name=f'block_{i}', pos=(x, 0, 0.05),
+            joints=[JointSpec(type=SLIDE, name=f'blockz_{i}', axis=(0, 0, 1),
+                              limited=True, range=(-.15, .15), stiffness=150.,
+                              springref=0., damping=.01, armature=.1,
+                              solref_limit=(0.02, 1.0),
+                              solimp_limit=(0.0, 0.8, 0.03))],
+            geoms=[GeomSpec(type=BOX, name=f'block_{i}', size=(w, .99, 0.05),
+                            mass=10., contype=1, conaffinity=1, condim=3,
+                            friction=(0.4, 0.1, 0.1), solref=(0.02, 1.0),
+                            solimp=(0.0, 0.8, 0.01))]))
+    floor = GeomSpec(type=PLANE, name='floor', pos=(0, 0, -.1),
+                     size=(40, 40, 40), contype=0, conaffinity=0, condim=3)
+    return ModelSpec(
+        name='half_cheetah_blocks',
+        option=OptionSpec(timestep=0.01, gravity=(0, 0, -9.81),
+                          integrator=EULER),
+        world_geoms=[floor],
+        bodies=blocks + [_cheetah_tree()],
+        actuators=_cheetah_actuators(),
+        settotalmass=14.0)
+
+
+# ---------------------------------------------------------------------------
+# 7-dof arm
+# ---------------------------------------------------------------------------
+
+def _arm_geom(**kw):
+    base = dict(type=CAPSULE, friction=(.5, .1, .1), margin=0.002, condim=1,
+                contype=0, conaffinity=0, density=1000.0)
+    base.update(kw)
+    return GeomSpec(**base)
+
+
+def _arm_joint(**kw):
+    base = dict(type=HINGE, limited=True, armature=0.04, damping=1.0)
+    base.update(kw)
+    return JointSpec(**base)
+
+
+def arm_7dof_spec() -> ModelSpec:
+    obj = BodySpec(
+        name='object', pos=(.15, 0, 0),
+        geoms=[GeomSpec(type=BOX, name='object', size=(.05, .05, .025),
+                        contype=1, conaffinity=1, condim=1,
+                        friction=(.5, .1, .1), margin=0.002)])
+    palm = BodySpec(
+        name='r_gripper_palm_link',
+        geoms=[_arm_geom(name='pl', fromto=(.05, 0, -.02, .05, 0, .02),
+                         size=(.05,))],
+        children=[obj])
+    wrist_roll = BodySpec(
+        name='r_wrist_roll_link',
+        joints=[_arm_joint(name='r_wrist_roll_joint', axis=(1, 0, 0),
+                           range=(-3.15, 3.15), damping=0.1)],
+        geoms=[_arm_geom(name='wr', fromto=(-.02, 0, 0, .02, 0, 0),
+                         size=(.01,))],
+        children=[palm])
+    wrist_flex = BodySpec(
+        name='r_wrist_flex_link', pos=(.321, 0, 0),
+        joints=[_arm_joint(name='r_wrist_flex_joint', axis=(0, 1, 0),
+                           range=(-2.094, 0), damping=.1)],
+        geoms=[_arm_geom(name='wf', fromto=(0, -.02, 0, 0, .02, 0),
+                         size=(.01,))],
+        children=[wrist_roll])
+    forearm = BodySpec(
+        name='r_forearm_link',
+        geoms=[_arm_geom(name='fa', fromto=(0, 0, 0, .321, 0, 0), size=(.05,),
+                         contype=1, conaffinity=1)],
+        children=[wrist_flex])
+    forearm_roll = BodySpec(
+        name='r_forearm_roll_link',
+        joints=[_arm_joint(name='r_forearm_roll_joint', axis=(1, 0, 0),
+                           range=(-3.15, 3.15), damping=.1)],
+        geoms=[_arm_geom(name='fr', fromto=(-.1, 0, 0, .1, 0, 0),
+                         size=(.02,))],
+        children=[forearm])
+    elbow = BodySpec(
+        name='r_elbow_flex_link', pos=(.4, 0, 0),
+        joints=[_arm_joint(name='r_elbow_flex_joint', axis=(0, 1, 0),
+                           range=(-2.3213, 0), damping=1.0)],
+        geoms=[_arm_geom(name='ef', fromto=(0, -.02, 0, 0, .02, 0),
+                         size=(.06,))],
+        children=[forearm_roll])
+    upper_arm = BodySpec(
+        name='r_upper_arm_link',
+        geoms=[_arm_geom(name='ua', fromto=(0, 0, 0, .4, 0, 0), size=(.06,),
+                         contype=1, conaffinity=1)],
+        children=[elbow])
+    upper_arm_roll = BodySpec(
+        name='r_upper_arm_roll_link',
+        joints=[_arm_joint(name='r_upper_arm_roll_joint', axis=(1, 0, 0),
+                           range=(-3.9, 0.8), damping=0.1)],
+        geoms=[_arm_geom(name='uar', fromto=(-.1, 0, 0, .1, 0, 0),
+                         size=(.02,))],
+        children=[upper_arm])
+    shoulder_lift = BodySpec(
+        name='r_shoulder_lift_link', pos=(0.1, 0, 0),
+        joints=[_arm_joint(name='r_shoulder_lift_joint', axis=(0, 1, 0),
+                           range=(-.5236, 1.3963), damping=10.0)],
+        geoms=[_arm_geom(name='sl', fromto=(0, -.1, 0, 0, .1, 0), size=(.1,),
+                         contype=1, conaffinity=1)],
+        children=[upper_arm_roll])
+    shoulder_pan = BodySpec(
+        name='r_shoulder_pan_link', pos=(0, -0.188, 0),
+        joints=[_arm_joint(name='r_shoulder_pan_joint', axis=(0, 0, 1),
+                           range=(-2.2854, 1.714602), damping=10.0)],
+        geoms=[
+            _arm_geom(name='e1', type=SPHERE, pos=(-.06, .05, .2),
+                      size=(.05,)),
+            _arm_geom(name='e2', type=SPHERE, pos=(.06, .05, .2), size=(.05,)),
+            _arm_geom(name='e1p', type=SPHERE, pos=(-.06, .09, .2),
+                      size=(.03,)),
+            _arm_geom(name='e2p', type=SPHERE, pos=(.06, .09, .2),
+                      size=(.03,)),
+            _arm_geom(name='sp', fromto=(0, 0, -0.4, 0, 0, 0.2), size=(.1,),
+                      contype=1, conaffinity=1),
+        ],
+        children=[shoulder_lift])
+    target = BodySpec(
+        name='target', pos=(0, 0, 0),
+        joints=[
+            JointSpec(type=SLIDE, name='target_x', axis=(1, 0, 0), ref=.1),
+            JointSpec(type=SLIDE, name='target_y', axis=(0, 1, 0), ref=-.1),
+            JointSpec(type=SLIDE, name='target_z', axis=(0, 0, 1), ref=-.1),
+        ],
+        geoms=[GeomSpec(type=SPHERE, name='target', size=(.02,), contype=0,
+                        conaffinity=0)])
+    floor = GeomSpec(type=PLANE, name='floor', pos=(0, 0, -1),
+                     size=(40, 40, 40), contype=0, conaffinity=0, condim=3)
+    acts = [ActuatorSpec(joint=f'r_{n}_joint', gear=1.0, ctrlrange=(-1., 1.))
+            for n in ('shoulder_pan', 'shoulder_lift', 'upper_arm_roll',
+                      'elbow_flex', 'forearm_roll', 'wrist_flex',
+                      'wrist_roll')]
+    return ModelSpec(
+        name='arm_7dof',
+        option=OptionSpec(timestep=0.02, gravity=(0, 0, 0), integrator=EULER,
+                          iterations=20),
+        world_geoms=[floor],
+        bodies=[shoulder_pan, target],
+        actuators=acts)
+
+
 _SPEC_FNS = {
     'half_cheetah': half_cheetah_spec,
+    'half_cheetah_hfield': half_cheetah_hfield_spec,
+    'half_cheetah_blocks': half_cheetah_blocks_spec,
+    'arm_7dof': arm_7dof_spec,
 }
 
 _MODEL_CACHE = {}

@@ -13,7 +13,9 @@ import json
 import os
 
 from learning_to_adapt_torch.device import resolve_device
-from learning_to_adapt_torch.envs import HalfCheetahEnv, normalize
+from learning_to_adapt_torch.envs import (
+    Arm7DofEnv, HalfCheetahBlocksEnv, HalfCheetahEnv, HalfCheetahHFieldEnv,
+    normalize)
 from learning_to_adapt_torch.samplers import ModelSampleProcessor, Sampler
 from learning_to_adapt_torch.trainers import Trainer
 from learning_to_adapt_torch.utils import logging as logger
@@ -22,9 +24,10 @@ from learning_to_adapt_torch.utils.config import (
     ClassEncoder, add_task_distribution_args, apply_task_distribution_args,
     check_resume_config, task_env_kwargs)
 
-#: envs the port has; the JAX package's other four (HalfCheetahHFieldEnv,
-#: HalfCheetahBlocksEnv, AntEnv, Arm7DofEnv) are ROADMAP queue 1, item 8
-ENVS = {c.__name__: c for c in (HalfCheetahEnv,)}
+#: envs the port has: every Euler-integrated env of the JAX package. AntEnv
+#: (free joint, RK4) is the next slice, ROADMAP queue 1, item 8
+ENVS = {c.__name__: c for c in (HalfCheetahEnv, HalfCheetahHFieldEnv,
+                                HalfCheetahBlocksEnv, Arm7DofEnv)}
 
 
 class EntryPoint:
@@ -109,10 +112,11 @@ class EntryPoint:
                        help='capture torch.profiler traces of one sampling '
                             'iteration and one model fit into <exp>/profile')
         p.add_argument('--env', type=str, default=None,
-                       help='env class name (default HalfCheetahEnv, the '
-                            'only one ported)')
+                       help='env class name (default HalfCheetahEnv); one '
+                            f'of {", ".join(sorted(ENVS))}')
         p.add_argument('--task', type=str, default=None,
-                       help="task distribution, e.g. 'cripple'")
+                       help="task distribution, e.g. 'cripple', 'hfield', "
+                            "'damping', 'force'")
         p.add_argument('--device', type=str, default='cuda',
                        help="torch device; 'cpu' runs without a card")
         add_task_distribution_args(p)
@@ -125,8 +129,8 @@ class EntryPoint:
             if args.env not in ENVS:
                 raise NotImplementedError(
                     f'{args.env} is not ported yet (ROADMAP.md queue 1, '
-                    'item 8: the rest of physics and envs); the port has '
-                    f'{sorted(ENVS)}')
+                    'item 8: the Ant slice, with free joints, RK4 and the '
+                    f'PGS branch); the port has {sorted(ENVS)}')
             cfg['env'] = ENVS[args.env]
         if args.task:
             cfg['task'] = args.task

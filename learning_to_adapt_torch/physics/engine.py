@@ -1,9 +1,11 @@
 """Articulated rigid-body dynamics, batched over a leading env axis.
 
 Counterpart of learning_to_adapt_tpu/physics/engine.py for the feature set
-HalfCheetah uses: hinge and slide joints, plane-sphere / plane-capsule
-contacts, MuJoCo-style soft constraints solved by projected Jacobi (the
-kernel in ops/jacobi.py), and the semi-implicit Euler integrator. Where the
+of the Euler-integrated envs (HalfCheetah, its terrain and blocks variants,
+the 7-DoF arm): hinge and slide joints, every narrow-phase pair kind of
+physics/collision.py, MuJoCo-style soft constraints solved by projected
+Jacobi (the kernels in ops/jacobi.py), and the semi-implicit Euler
+integrator. Where the
 JAX engine is written for one env and vmapped, every function here takes
 (E, ...) tensors: qpos (E, nq), qvel (E, nv), ctrl (E, nu) and a
 MutableModel whose fields carry the env axis too.
@@ -65,10 +67,6 @@ class ModelTensors:
             raise NotImplementedError("only the 'jacobi' solver is ported")
         if np.any(model.jnt_type == FREE):
             raise NotImplementedError('free joints are not ported yet')
-        kinds = [k for k, _ in model.pair_groups]
-        for k in kinds:
-            if k not in ('plane_sphere', 'plane_capsule'):
-                raise NotImplementedError(f'collision kind {k} not ported yet')
 
         def t(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -148,7 +146,7 @@ class ModelTensors:
         meta = dict(body1=[], body2=[], mu=[], solref=[], solimp=[],
                     margin=[], condim=[])
         for kind, pairs in model.pair_groups:
-            n_pts = 2 if kind == 'plane_capsule' else 1
+            n_pts = coll.POINTS[kind]
             self.pair_groups.append((kind, ix(pairs[:, 0]), ix(pairs[:, 1])))
             for g1, g2 in pairs:
                 g1, g2 = int(g1), int(g2)
@@ -280,18 +278,46 @@ def _contacts(mt: ModelTensors, mm, gpos, gmat):
     hint (capsule long axis for capsule contacts, else zeros)."""
     dists, poss, normals, hints = [], [], [], []
     for kind, i1, i2 in mt.pair_groups:
-        p1, m1 = gpos[:, i1], gmat[:, i1]
+        p1, m1, s1 = gpos[:, i1], gmat[:, i1], mm.geom_size[:, i1]
         p2, m2, s2 = gpos[:, i2], gmat[:, i2], mm.geom_size[:, i2]
         if kind == 'plane_sphere':
             d, p, n = coll.plane_sphere(p1, m1, p2, s2[..., 0])
-        else:
+        elif kind == 'plane_capsule':
             d, p, n = coll.plane_capsule(p1, m1, p2, m2, s2[..., 0],
                                          s2[..., 1])
+        elif kind in ('hfield_sphere', 'hfield_capsule'):
+            # each env's terrain, seen by each of its pairs
+            batch = p1.shape[:2]
+            hf = (p1, mm.hfield_size[:, None].expand(batch + (4,)),
+                  mm.hfield_row[:, None].expand(
+                      batch + (mm.hfield_row.shape[-1],)))
+            if kind == 'hfield_sphere':
+                d, p, n = coll.hfield_sphere(*hf, p2, s2[..., 0])
+            else:
+                d, p, n = coll.hfield_capsule(*hf, p2, m2, s2[..., 0],
+                                              s2[..., 1])
+        elif kind == 'sphere_sphere':
+            d, p, n = coll.sphere_sphere(p1, s1[..., 0], p2, s2[..., 0])
+        elif kind == 'sphere_capsule':
+            d, p, n = coll.sphere_capsule(p1, s1[..., 0], p2, m2, s2[..., 0],
+                                          s2[..., 1])
+        elif kind == 'capsule_capsule':
+            d, p, n = coll.capsule_capsule(p1, m1, s1[..., 0], s1[..., 1],
+                                           p2, m2, s2[..., 0], s2[..., 1])
+        elif kind == 'capsule_box':
+            d, p, n = coll.capsule_box(p1, m1, s1[..., 0], s1[..., 1], p2,
+                                       m2, s2[..., :3])
+        elif kind == 'sphere_box':
+            d, p, n = coll.sphere_box(p1, s1[..., 0], p2, m2, s2[..., :3])
+        elif kind == 'box_box':
+            d, p, n = coll.box_box(p1, m1, s1[..., :3], p2, m2, s2[..., :3])
+        else:
+            raise ValueError(kind)
         n_env, n_pairs, n_pts = d.shape
         dists.append(d.reshape(n_env, -1))
         poss.append(p.reshape(n_env, -1, 3))
         normals.append(n.reshape(n_env, -1, 3))
-        if kind == 'plane_capsule':
+        if kind in ('plane_capsule', 'hfield_capsule'):
             h = m2[..., :, 2][:, :, None, :].expand(n_env, n_pairs, n_pts, 3)
         else:
             h = torch.zeros_like(p)

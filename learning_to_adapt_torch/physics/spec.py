@@ -257,6 +257,17 @@ def batched_mutable(mm: MutableModel, n_envs, device, dtype) -> MutableModel:
                            for f in dataclasses.fields(mm)})
 
 
+def mutable_from_numpy(mm, device, dtype) -> MutableModel:
+    """The port's batched MutableModel from the arrays of a MutableModel
+    that already carry a leading env axis, e.g. body_mass (E, nbody): the
+    JAX package's, after a vmapped task draw (any object with the seven
+    fields, each something np.asarray takes)."""
+    return MutableModel(**{
+        f.name: torch.as_tensor(np.array(getattr(mm, f.name)), dtype=dtype,
+                                device=device)
+        for f in dataclasses.fields(MutableModel)})
+
+
 # ---------------------------------------------------------------------------
 # geometry helpers (host-side)
 # ---------------------------------------------------------------------------

@@ -197,12 +197,77 @@ def test_jacobi_kernel_special_systems(dev, case):
         assert (out[:, 3] == 0).all()
 
 
+def _launches():
+    return jacobi.jacobi_solve.launches, jacobi.jacobi_solve_cluster.launches
+
+
+#: the cluster kernel's N on chip_smoke.py's path: just above the tiers,
+#: the blocks env's system, and two powers of two
+CLUSTER_NS = (225, 988, 1024, 2048)
+
+
+@pytest.mark.parametrize('n_envs', [1, 5])
+@pytest.mark.parametrize('n', CLUSTER_NS)
+def test_jacobi_cluster_kernel_matches_plain(dev, n_envs, n):
+    """Above 224 rows jacobi_solve launches the cluster kernel, once."""
+    args = _system(dev, n_envs, n, seed=n + n_envs)
+    before = _launches()
+    out = jacobi.jacobi_solve(*args, 60)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 1)
+    torch.testing.assert_close(out, jacobi.jacobi_solve_plain(*args, 60),
+                               **JACOBI_TOL)
+    assert (out >= 0).all()
+
+
+def test_jacobi_cluster_kernel_at_512_envs(dev):
+    """The blocks system size at the saturated sampling width: clusters of
+    the portable 8 blocks, more than the card holds at once."""
+    args = _system(dev, 512, 988, seed=9)
+    assert jacobi.cluster_shape(988, 512, 132)[0] == 8
+    out = jacobi.jacobi_solve(*args, 60)
+    torch.testing.assert_close(out, jacobi.jacobi_solve_plain(*args, 60),
+                               **JACOBI_TOL)
+
+
+@pytest.mark.parametrize('case', ['omega_one', 'b_nonnegative', 'zero_row'])
+def test_jacobi_cluster_kernel_special_systems(dev, case):
+    """The special systems above through the cluster kernel (at N = 76, any
+    N being its to take), and an N that is not a multiple of 4 (scalar
+    loads of A)."""
+    args = _special_system(dev, case)
+    out = jacobi.jacobi_solve_cluster(*args, 60)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, jacobi.jacobi_solve_plain(*args, 60),
+                               **JACOBI_TOL)
+    if case == 'b_nonnegative':
+        assert (out == 0).all()
+    if case == 'zero_row':
+        assert (out[:, 3] == 0).all()
+    odd = _system(dev, 3, 301, seed=1)
+    torch.testing.assert_close(jacobi.jacobi_solve_cluster(*odd, 60),
+                               jacobi.jacobi_solve_plain(*odd, 60),
+                               **JACOBI_TOL)
+
+
+def test_jacobi_cluster_shapes_launch_on_this_card(dev):
+    """Clusters of 16 and of 8 blocks fit the card (a cluster of 16 is
+    non-portable)."""
+    for cluster in (16, 8):
+        for vec in (4, 1):
+            assert jacobi.cluster_occupancy(988, cluster, vec, dev) > 0
+
+
 def test_jacobi_kernel_refuses_n_above_largest_tier(dev):
-    args = _system(dev, 2, jacobi.MAX_ROWS + 1, seed=0)
-    before = jacobi.jacobi_solve.launches
-    with pytest.raises(ValueError, match='largest launch tier'):
-        jacobi.jacobi_solve(*args, 60)
-    assert jacobi.jacobi_solve.launches == before
+    """Above the largest N the cluster kernel takes: ValueError, nothing
+    launched (A a broadcast view: only shapes are read)."""
+    n = jacobi.MAX_CLUSTER_ROWS + 1
+    a = torch.ones((1, 1, 1), device=dev).expand(2, n, n)
+    b = torch.zeros((2, n), device=dev)
+    before = _launches()
+    with pytest.raises(ValueError, match='largest the cluster kernel'):
+        jacobi.jacobi_solve(a, b, b + 1, torch.ones(2, device=dev), 60)
+    assert _launches() == before
 
 
 def test_jacobi_kernel_refuses_float64(dev):

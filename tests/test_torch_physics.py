@@ -1,7 +1,10 @@
 """Parity of the port's physics (learning_to_adapt_torch.physics, ops.jacobi)
-with the JAX package: the compiled HalfCheetah model, batched engine.step and
-engine.forward at float64 and float32, the plane-capsule collider and the
-projected-Jacobi solve's plain version."""
+with the JAX package: the compiled models of the four Euler-integrated
+envs, batched engine.step and engine.forward at float64 and float32 (on
+HalfCheetah here; the terrain, blocks and arm models in
+tests/test_torch_envs_euler.py), the plane-capsule collider (every collider
+in tests/test_torch_collision.py) and the projected-Jacobi solve's plain
+version, its launch tiers and its cluster path above 224 rows."""
 import dataclasses
 
 import jax
@@ -37,23 +40,32 @@ DTYPES = {
 }
 
 
+#: the models of the Euler-integrated envs
+MODELS = ('half_cheetah', 'half_cheetah_hfield', 'half_cheetah_blocks',
+          'arm_7dof')
+
+
 def test_compiled_model_fields_match():
-    """Every PhysicsModel field of get_model('half_cheetah'), including the
-    compile-time invweights computed by each package's own engine."""
-    pm, jm = port_model('half_cheetah'), jax_model('half_cheetah')
-    for f in dataclasses.fields(jm):
-        a, b = getattr(pm, f.name), getattr(jm, f.name)
-        if f.name == 'pair_groups':
-            assert [k for k, _ in a] == [k for k, _ in b]
-            for (_, pa), (_, pb) in zip(a, b):
-                np.testing.assert_array_equal(pa, pb)
-        elif isinstance(b, np.ndarray) and b.dtype.kind == 'f':
-            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
-                                       err_msg=f.name)
-        elif isinstance(b, np.ndarray):
-            np.testing.assert_array_equal(a, b, err_msg=f.name)
-        else:
-            assert a == b, f.name
+    """Every PhysicsModel field of get_model(name) for each of MODELS
+    (box masses and inertias, the hfield size, the block slide joints, the
+    arm's geoms), including the compile-time invweights computed by each
+    package's own engine."""
+    for name in MODELS:
+        pm, jm = port_model(name), jax_model(name)
+        for f in dataclasses.fields(jm):
+            a, b = getattr(pm, f.name), getattr(jm, f.name)
+            msg = f'{name}: {f.name}'
+            if f.name == 'pair_groups':
+                assert [k for k, _ in a] == [k for k, _ in b], msg
+                for (_, pa), (_, pb) in zip(a, b):
+                    np.testing.assert_array_equal(pa, pb, err_msg=msg)
+            elif isinstance(b, np.ndarray) and b.dtype.kind == 'f':
+                np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
+                                           err_msg=msg)
+            elif isinstance(b, np.ndarray):
+                np.testing.assert_array_equal(a, b, err_msg=msg)
+            else:
+                assert a == b, msg
 
 
 def _jax_traj(jm, dt, x64, qpos, qvel, ctrls):
@@ -220,16 +232,47 @@ def test_jacobi_kernel_entry_raises_without_toolkit():
         port_jacobi.jacobi_solve_cuda(a, b, aii_inv, omega, 10)
 
 
+def _launches():
+    return (port_jacobi.jacobi_solve.launches,
+            port_jacobi.jacobi_solve_cluster.launches)
+
+
 def test_jacobi_kernel_entry_refuses_n_above_largest_tier_before_build():
-    """An N above the largest launch tier raises ValueError before the
-    kernel is built or launched, with or without a toolkit."""
-    n = port_jacobi.MAX_ROWS + 1
-    a, b, aii_inv, omega = (t(x) for x in _random_system(n, 1, 2,
-                                                         np.float32))
-    before = port_jacobi.jacobi_solve.launches
+    """An N above the largest the cluster kernel takes (its f buffers would
+    overflow shared memory) raises ValueError before either kernel is built
+    or launched, with or without a toolkit. A is a broadcast view: the
+    check reads shapes only."""
+    n = port_jacobi.MAX_CLUSTER_ROWS + 1
+    a = torch.ones((1, 1, 1)).expand(1, n, n)
+    b, aii_inv, omega = torch.zeros((1, n)), torch.ones((1, n)), \
+        torch.ones(1)
+    before = _launches()
+    for entry in (port_jacobi.jacobi_solve_cuda,
+                  port_jacobi.jacobi_solve_cluster):
+        with pytest.raises(ValueError, match='largest the cluster kernel'):
+            entry(a, b, aii_inv, omega, 10)
+    with pytest.raises(ValueError, match='largest the cluster kernel'):
+        port_jacobi.route(n)
+    assert _launches() == before
+
+
+@pytest.mark.parametrize('n', [225, 988, port_jacobi.MAX_CLUSTER_ROWS])
+def test_jacobi_large_n_selects_the_cluster_kernel(n, monkeypatch):
+    """Above the largest launch tier (224 rows) the kernel entry hands the
+    system to the cluster kernel, the only kernel it launches there; the
+    tiers take every N up to 224."""
+    assert port_jacobi.route(n) == 'cluster'
+    assert port_jacobi.route(port_jacobi.MAX_ROWS) == 'tiers'
+    a = torch.ones((1, 1, 1)).expand(2, n, n)
+    b, aii_inv, omega = torch.zeros((2, n)), torch.ones((2, n)), \
+        torch.ones(2)
+    taken = []
+    monkeypatch.setattr(port_jacobi, 'jacobi_solve_cluster',
+                        lambda *args: taken.append(args[0].shape))
+    port_jacobi.jacobi_solve_cuda(a, b, aii_inv, omega, 10)
+    assert taken == [(2, n, n)]
     with pytest.raises(ValueError, match='largest launch tier'):
-        port_jacobi.jacobi_solve_cuda(a, b, aii_inv, omega, 10)
-    assert port_jacobi.jacobi_solve.launches == before
+        port_jacobi.launch_shape(n)
 
 
 def test_jacobi_kernel_entry_launches_nothing_for_an_empty_batch():
@@ -249,11 +292,65 @@ def test_jacobi_kernel_entry_launches_nothing_for_an_empty_batch():
     (33, (4, 16, 2, 96)), (64, (4, 16, 2, 128)), (76, (4, 20, 4, 96)),
     (80, (4, 20, 4, 96)), (81, (4, 32, 2, 192)), (128, (4, 32, 2, 256)),
     (129, (4, 56, 2, 288)), (200, (4, 56, 2, 416)), (224, (4, 56, 2, 448)),
+    (225, (16, 512, 15, 4 * (225 + 2 * 15))),
+    (988, (16, 512, 62, 4 * (988 + 2 * 62))),
 ])
 def test_jacobi_launch_tier(n, shape):
     """N -> (threads per row, columns per thread, rows per thread, threads
-    per block)."""
-    assert port_jacobi.launch_shape(n) == shape
+    per block) up to 224 rows; above, the cluster kernel's (blocks per
+    cluster, threads per block, rows per block, bytes of shared memory) for
+    5 envs on a card of 132 SMs."""
+    if n <= port_jacobi.MAX_ROWS:
+        assert port_jacobi.launch_shape(n) == shape
+    else:
+        assert port_jacobi.cluster_shape(n, 5, 132) == shape
+
+
+@pytest.mark.parametrize('n_envs,n_sms,cluster', [
+    (1, 132, 16), (5, 132, 16), (8, 132, 16), (9, 132, 8), (512, 132, 8),
+    (5, 64, 8)])
+def test_jacobi_cluster_size(n_envs, n_sms, cluster):
+    """16 blocks per env while every env's cluster fits the card at once,
+    else the portable 8; shared memory for the gathered f and the block's
+    own rows, double-buffered, within a block's 227 KB up to
+    MAX_CLUSTER_ROWS."""
+    got = port_jacobi.cluster_shape(988, n_envs, n_sms)
+    assert got[0] == cluster and got[2] == -(-988 // cluster)
+    top = port_jacobi.cluster_shape(port_jacobi.MAX_CLUSTER_ROWS, n_envs,
+                                    n_sms)
+    assert top[3] <= 232448
+    assert 4 * (port_jacobi.MAX_CLUSTER_ROWS + 1 + 2 * -(
+        -(port_jacobi.MAX_CLUSTER_ROWS + 1) // 8)) > 232448
+
+
+@pytest.mark.parametrize('precision', ['f64', 'f32'])
+def test_jacobi_plain_matches_xla_loop_at_blocks_size(precision):
+    """N = 988, the blocks env's system size, against jacobi_solve_xla
+    (f32: rtol 1e-4, atol 1e-5, the summation order of 988-term rows)."""
+    dt, tdt, x64, _, _ = DTYPES[precision]
+    a, b, aii_inv, omega = _random_system(988, 1, 7, dt)
+    got = port_jacobi.jacobi_solve(t(a, tdt), t(b, tdt), t(aii_inv, tdt),
+                                   t(omega, tdt), 60)
+    with jax.enable_x64(x64):
+        want = pallas_jacobi.jacobi_solve_xla(
+            jnp.asarray(a[0]), jnp.asarray(b[0]), jnp.asarray(aii_inv[0]),
+            jnp.asarray(omega[0]), 60)
+    tol = (dict(rtol=1e-12, atol=1e-14) if precision == 'f64'
+           else dict(rtol=1e-4, atol=1e-5))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), **tol)
+    assert (got > 0).any() and (got == 0).any()
+
+
+def test_jacobi_plain_matches_pallas_interpret_at_blocks_size():
+    """N = 988 against the Pallas kernel in interpret mode (float32, padded
+    to 1024 rows), tolerance as above."""
+    a, b, aii_inv, omega = _random_system(988, 1, 8, np.float32)
+    want = pallas_jacobi.jacobi_solve(
+        jnp.asarray(a[0]), jnp.asarray(b[0]), jnp.asarray(aii_inv[0]),
+        float(omega[0]), 60, interpret=True)
+    got = port_jacobi.jacobi_solve(t(a), t(b), t(aii_inv), t(omega), 60)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_jacobi_launch_tiers_fit_every_n():
