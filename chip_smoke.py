@@ -94,9 +94,24 @@ Phases, each of which raises (exit code != 0) on failure:
      grbal_arm7dof_force_tpu_r4.csv, params.pkl re-creating its env; then
      policy sampling calls on the blocks env as in phase 8 (one of 100
      steps timed, one of 30 profiled, one of 30 watched for host waits);
- 14. print the card line again, one JSON line describing every kernel
+ 14. the Ant (free joint, RK4: 4 constraint solves a physics step): in
+     the kernel phase, the tier Jacobi kernel on Ant contact systems (5
+     envs x 116 rows, after 30 random-action steps) and the MLP kernel at
+     the Ant's widths (5 x 500 rows, 49->512x3->41, beside the bf16
+     baddbmm chain), each against its plain version, timed warm and with
+     L2 flushed and by profiler device time; run_grbal --env AntEnv --task
+     cripple as in phase 13 (per policy iteration 1000 fused-MLP launches,
+     100 packs and 4 x 100 Jacobi launches; header of
+     results/grbal_ant_cripple_tpu_r4.csv), policy sampling calls as in
+     phase 8, and one iteration of run_mb_mpc --env AntEnv --task cripple
+     (header of results/mb_mpc_ant_cripple_tpu_r4.csv; 4 x 100 Jacobi
+     launches in its random call);
+ 15. print the card line again, one JSON line describing every kernel
      (with its launches on each algorithm's and env's path), then the
      contract line {"ok": true, "device": {...}} last.
+
+Profiler windows are read from their raw kineto events (Trace): building
+the profiler's FunctionEvents takes tens of seconds a window.
 
 Imports nothing of JAX or of the JAX package. Without a card it exits 2
 before printing any result.
@@ -118,6 +133,8 @@ F32_FLOP_PER_S = 67e12
 
 MLP_DIMS = (26, 512, 512, 512, 20)    # obs 20 + act 6 -> 20
 ARM_DIMS = (30, 512, 512, 512, 23)    # the arm: obs 23 + act 7 -> 23
+ANT_DIMS = (49, 512, 512, 512, 41)    # the Ant: obs 41 + act 8 -> 41
+ANT_ROWS = 116                        # 16 limit rows + 25 contacts x 4
 N_ENVS, N_CANDIDATES, HORIZON = 5, 500, 10
 # MB-MPC (run_scripts/run_mb_mpc.py): 10 envs x 2000 candidates x horizon
 # 20 through a (512, 512) model, one weight set for every row
@@ -150,7 +167,9 @@ NEW_ENVS = (
     ('HalfCheetahBlocksEnv', 'damping', 'grbal_blocks_tpu_r5.csv',
      'jacobi_solve_cluster'),
     ('Arm7DofEnv', 'force', 'grbal_arm7dof_force_tpu_r4.csv',
-     'jacobi_solve'))
+     'jacobi_solve'),
+    ('AntEnv', 'cripple', 'grbal_ant_cripple_tpu_r4.csv', 'jacobi_solve'))
+ANT_MB_HEADER = 'mb_mpc_ant_cripple_tpu_r4.csv'
 NEW_ENV_ITR = 2                       # one random, one policy iteration
 
 SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
@@ -200,22 +219,127 @@ def cuda_ms(fn, warmup=5, iters=50, before=None):
     return sum(s.elapsed_time(e) for s, e in marks) / iters
 
 
+class Trace:
+    """The events of a torch.profiler window, read from its raw kineto
+    results: building the profiler's FunctionEvents takes tens of seconds
+    for a sampling call's few hundred thousand events, this about one.
+    `device`: the card's activities (kernels, copies; not the annotations
+    that mirror the 'rollout.*' / 'fit.*' labels) as (name, ns, correlation
+    id); `host`: the CPU side (operators, labels, CUDA runtime calls) as
+    (name, start ns, end ns, thread, correlation id)."""
+
+    def __init__(self, prof):
+        from torch.autograd import DeviceType
+        self.device, self.host = [], []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() == DeviceType.CUDA:
+                if not (e.is_user_annotation() or
+                        name.startswith(('rollout.', 'fit.'))):
+                    self.device.append((name, e.duration_ns(),
+                                        e.correlation_id()))
+            else:
+                self.host.append((name, e.start_ns(), e.end_ns(),
+                                  e.start_thread_id(), e.correlation_id()))
+
+    def device_us(self, kernel=''):
+        """Device time of the activities whose name holds `kernel`."""
+        return sum(ns for name, ns, _ in self.device if kernel in name) / 1e3
+
+    def launches(self, kernel):
+        return sum(kernel in name for name, _, _ in self.device)
+
+    def parts(self, prefix):
+        """{label: (calls, host us)} of the host ranges named prefix*."""
+        out = {}
+        for name, start, end, _, _ in self.host:
+            if name.startswith(prefix):
+                calls, us = out.get(name, (0, 0.0))
+                out[name] = (calls + 1, us + (end - start) / 1e3)
+        return out
+
+    def device_us_under(self, label):
+        """Device time of the activities launched (by a CUDA runtime call)
+        inside a host range named `label`."""
+        import bisect
+        ranges = {}
+        for name, start, end, tid, _ in self.host:
+            if name == label:
+                ranges.setdefault(tid, []).append((start, end))
+        for r in ranges.values():
+            r.sort()
+        launch = {corr: (start, tid) for name, start, _, tid, corr
+                  in self.host if corr and name.startswith('cu')}
+        ns, linked = 0, 0
+        for _, dur, corr in self.device:
+            if corr not in launch:
+                continue
+            linked += 1
+            start, tid = launch[corr]
+            r = ranges.get(tid, [])
+            i = bisect.bisect_right(r, (start, float('inf'))) - 1
+            if i >= 0 and r[i][0] <= start <= r[i][1]:
+                ns += dur
+        if ranges and not linked:
+            raise AssertionError('no device activity linked to a runtime '
+                                 'call in the trace')
+        return ns / 1e3
+
+    def calls_by_parent(self, names):
+        """{'<call> in <innermost enclosing host range>': count} of the host
+        events named in `names` ('python' where nothing encloses one): one
+        sweep a thread over the events in start order with a stack of the
+        open ranges, as the profiler's own tree is built."""
+        out = {}
+        order = sorted(range(len(self.host)), key=lambda i: (
+            self.host[i][3], self.host[i][1], -self.host[i][2]))
+        stack = []
+        for i in order:
+            name, start, end, tid, _ = self.host[i]
+            while stack and not (self.host[stack[-1]][3] == tid and
+                                 self.host[stack[-1]][2] >= end):
+                stack.pop()
+            if name in names:
+                parent = self.host[stack[-1]][0] if stack else 'python'
+                key = f'{name} in {parent}'
+                out[key] = out.get(key, 0) + 1
+            stack.append(i)
+        return out
+
+
+def profiled(fn, cpu=True, tries=3):
+    """The Trace of fn() run under torch.profiler (the card's activity, and
+    the host's unless cpu=False). A window whose trace holds no device
+    activity at all, which the profiler has given once in a kernel's
+    device timing, is run again, up to `tries` times; then the phase fails
+    rather than report a time of 0."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
+    for attempt in range(1, tries + 1):
+        with profile(activities=activities) as prof:
+            fn()
+        trace = Trace(prof)
+        if trace.device:
+            return trace
+        log(f'profiler window {attempt} of {tries} recorded no device '
+            'activity')
+    raise AssertionError(f'{tries} profiler windows recorded no device '
+                         'activity')
+
+
 def device_ms(fn, iters=20):
     """Sum of the card's activity (kernels, copies) per call of fn, from a
     torch.profiler window: gaps between the kernels are not counted."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def window():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, 'is_user_annotation', False))
-    return us / iters / 1e3
+    return profiled(window, cpu=False).device_us() / iters / 1e3
 
 
 def bound_ms(n_bytes, flops, peak_flops):
@@ -334,6 +458,15 @@ def check_fused_mlp_arm(dev):
     got = check_fused_mlp(dev, ARM_DIMS, 'Arm')
     return {f'arm_{k}': got[k] for k in (
         'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
+        'library_ms', 'library_device_ms')}
+
+
+def check_fused_mlp_ant(dev):
+    """The kernel at the Ant's widths (49->512x3->41) on GrBAL's planner
+    shape; returns the keys it adds to the fused_mlp entry."""
+    got = check_fused_mlp(dev, ANT_DIMS, 'Ant')
+    return {f'ant_{k}': got[k] for k in (
+        'max_abs_err', 'ms', 'ms_cold', 'device_ms', 'plain_ms', 'bound_ms',
         'library_ms', 'library_device_ms')}
 
 
@@ -499,6 +632,55 @@ def check_jacobi(dev, floor_lib):
                 ms_512=ms_512)
 
 
+def check_jacobi_ant(dev):
+    """The tier kernel on the Ant's contact systems (5 envs x 116 rows: the
+    first of a physics step's four RK4 solves, after 30 random-action
+    steps) against its plain version; timed with CUDA events, warm and
+    with L2 flushed, and by profiler device time. Returns the keys it adds
+    to the jacobi_solve entry."""
+    import torch
+    from learning_to_adapt_torch.ops import jacobi as jc
+    A, b, ainv, omega, n_sweeps = contact_systems(dev, 'AntEnv', 'cripple')
+    n = A.shape[-1]
+    n_active = int((b != 0).sum())
+    per_row, cols, rows, threads = jc.launch_shape(n)
+    log(f'jacobi: Ant contact systems {tuple(A.shape)} (N = {n}), '
+        f'{n_sweeps} sweeps, {n_active} active rows over {N_ENVS} envs, '
+        f'omega {[round(float(w), 4) for w in omega]}; launch tier: '
+        f'{per_row} threads per row, {cols} columns and {rows} rows per '
+        f'thread, {N_ENVS} blocks x {threads} threads')
+    if n != ANT_ROWS or n_sweeps != JACOBI_SWEEPS or n_active == 0:
+        raise AssertionError(f'expected {ANT_ROWS} rows, 60 sweeps and an '
+                             'active contact set')
+    out = jc.jacobi_solve_cuda(A, b, ainv, omega, n_sweeps)
+    ref = jc.jacobi_solve_plain(A, b, ainv, omega, n_sweeps)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    log(f'jacobi Ant contact: max_abs_err {err:.3e} (tolerance {JACOBI_TOL}, '
+        f'max|ref| {float(ref.abs().max()):.3e})')
+    torch.testing.assert_close(out, ref, **JACOBI_TOL)
+    if not bool((out >= 0).all()):
+        raise AssertionError('projected Jacobi returned a negative force')
+
+    def kernel():
+        return jc.jacobi_solve_cuda(A, b, ainv, omega, n_sweeps)
+    flush = torch.empty(16 * 2 ** 20, device=dev)  # 64 MB > the 50 MB L2
+    ms = cuda_ms(kernel)
+    ms_cold = cuda_ms(kernel, iters=20, before=flush.zero_)
+    dev_ms = device_ms(kernel)
+    plain_ms = cuda_ms(lambda: jc.jacobi_solve_plain(A, b, ainv, omega,
+                                                     n_sweeps))
+    n_bytes = 4 * (A.numel() + 3 * b.numel() + omega.numel())
+    flops = n_sweeps * N_ENVS * n * (2 * n + 5)
+    b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
+    log(f'jacobi per launch, Ant, {N_ENVS} envs x {n} rows: kernel '
+        f'{ms:.4f} ms, L2 flushed {ms_cold:.4f} ms (device {dev_ms:.4f} ms), '
+        f'plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})')
+    return dict(ant_max_abs_err=err, ant_ms=ms, ant_ms_cold=ms_cold,
+                ant_device_ms=dev_ms, ant_plain_ms=plain_ms,
+                ant_bound_ms=b_ms, ant_rows=n)
+
+
 def check_jacobi_cluster(dev, floor_lib):
     """The cluster kernel (N > 224): on real blocks contact systems, on
     random SPD systems from N = 225 to 2048 at 1 and 5 envs and at N = 988
@@ -641,7 +823,7 @@ def main_path(dev, card):
     if np.abs(paths['actions']).max() > 1.0:
         raise AssertionError('planner actions outside [-1, 1]')
     want = dict(fused_mlp=HORIZON * PATH_LEN,
-                jacobi_solve=env.frame_skip * PATH_LEN,
+                jacobi_solve=solves_per_env_step(env) * PATH_LEN,
                 jacobi_solve_cluster=0)
     log(f'policy sampling launches {launches}, expected {want}; weight '
         f'packs {packs}, expected {PATH_LEN}')
@@ -661,37 +843,20 @@ def profile_policy_steps(dev, sampler):
     """torch.profiler over one policy sampling call of PROFILE_LEN steps
     (adaptation on from step 18): host time of each labelled part of a step,
     device kernel time and kernel launches per step, the busiest kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from learning_to_adapt_torch.samplers import Sampler
     prof_sampler = Sampler(sampler.env, sampler.policy, N_ENVS, PROFILE_LEN,
                            adapt_batch_size=ADAPT_BATCH, seed=1, device=dev)
     prof_sampler.obtain_samples()                  # warm-up
     prof_sampler.obtain_samples()
     plain_s = prof_sampler.last_seconds
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_sampler.obtain_samples()
+    trace = profiled(prof_sampler.obtain_samples)
     prof_s = prof_sampler.last_seconds
-    # device activity: kernels and copies, not the annotation spans that
-    # mirror the 'rollout.*' labels on the device timeline
-    events = prof.events()
-    on_device = [e for e in events
-                 if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith('rollout.')
-                 and not getattr(e, 'is_user_annotation', False)]
-    device_us = sum(e.time_range.elapsed_us() for e in on_device)
+    device_us = trace.device_us()
     by_name = {}  # keyed by the printed (shortened) kernel name
-    for e in on_device:
-        by_name[e.name[:70]] = (by_name.get(e.name[:70], 0) +
-                                e.time_range.elapsed_us())
-    parts = {}
-    for e in events:
-        if e.device_type == DeviceType.CPU and e.name.startswith('rollout.'):
-            calls, us = parts.get(e.name, (0, 0.0))
-            parts[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    for name, ns, _ in trace.device:
+        by_name[name[:70]] = by_name.get(name[:70], 0) + ns / 1e3
     parts = {k: dict(calls=c, host_ms_per_call=round(us / c / 1e3, 3))
-             for k, (c, us) in parts.items()}
+             for k, (c, us) in trace.parts('rollout.').items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f'profile, {N_ENVS}x{PROFILE_LEN} policy steps: wall '
         f'{plain_s * 1e3 / PROFILE_LEN:.2f} ms/step unprofiled, '
@@ -699,17 +864,15 @@ def profile_policy_steps(dev, sampler):
         f'{device_us / 1e3 / PROFILE_LEN:.3f} ms/step, busy share '
         f'{device_us / 1e6 / prof_s:.3f} of the profiled wall, '
         f'{device_us / 1e6 / plain_s:.3f} of the unprofiled wall; '
-        f'{len(on_device) / PROFILE_LEN:.0f} device activities/step')
+        f'{len(trace.device) / PROFILE_LEN:.0f} device activities/step')
     log('profile parts (host, profiled) ' + json.dumps(parts))
-    pack_us = [e.device_time_total for e in events
-               if e.device_type == DeviceType.CPU and e.name == 'rollout.pack']
-    log(f'profile rollout.pack: {len(pack_us)} packs, device time '
-        f'{sum(pack_us) / 1e3 / PROFILE_LEN:.4f} ms per step')
+    pack_us = trace.device_us_under('rollout.pack')
+    log(f'profile rollout.pack: {parts["rollout.pack"]["calls"]} packs, '
+        f'device time {pack_us / 1e3 / PROFILE_LEN:.4f} ms per step')
     for kernel in KERNEL_NAMES:
-        runs = [e.time_range.elapsed_us() for e in on_device
-                if kernel in e.name]
-        log(f'profile {kernel}: {len(runs)} launches, device time '
-            f'{sum(runs) / max(len(runs), 1) / 1e3:.4f} ms per launch')
+        n = trace.launches(kernel)
+        log(f'profile {kernel}: {n} launches, device time '
+            f'{trace.device_us(kernel) / max(n, 1) / 1e3:.4f} ms per launch')
     log('profile top device activities (ms/step): ' + json.dumps(
         {k: round(us / 1e3 / PROFILE_LEN, 4) for k, us in top}))
 
@@ -722,21 +885,18 @@ def watch_host_syncs(fn, n_steps, what):
     the run."""
     import warnings
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with warnings.catch_warnings(record=True) as caught, profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        warnings.simplefilter('always')
+
+    def watched():
+        caught.clear()              # the warnings of this window only
         torch.cuda.set_sync_debug_mode('warn')
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode('default')
-    by_op = {}
-    for e in prof.events():
-        if e.name in SYNC_CALLS:
-            op = e.cpu_parent.name if e.cpu_parent is not None else 'python'
-            by_op[f'{e.name} in {op}'] = by_op.get(
-                f'{e.name} in {op}', 0) + 1
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        trace = profiled(watched)
+    by_op = trace.calls_by_parent(SYNC_CALLS)
     sites = {}
     for w in caught:
         if 'synchronizing' in str(w.message):
@@ -868,7 +1028,8 @@ def check_trainer_launches(policy_itr, record, total, resume_record,
 def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr):
     """The training loop through a port entry point in a temporary
     directory (cfg: TRAIN_ITR iterations), then a resume to one more.
-    policy_itr(frame_skip) gives the launches of one policy sampling call.
+    policy_itr(solves) gives the launches of one policy sampling call, for
+    `solves` Jacobi launches an env step.
     Returns (per policy iteration launches, whole-run launches, the
     trainer)."""
     import math
@@ -918,7 +1079,7 @@ def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr):
         raise AssertionError(f'resume started at {resumed.start_itr}, '
                              f'wrote itrs {[r["Itr"] for r in resumed_rows]}')
 
-    per_itr = policy_itr(trainer.env.wrapped_env.frame_skip)
+    per_itr = policy_itr(solves_per_env_step(trainer.env.wrapped_env))
     check_trainer_launches(per_itr, record, total, resume_record,
                            resume_total)
     log(f'trainer ({entry.module}.run_experiment, --task cripple, seed 0, '
@@ -947,8 +1108,8 @@ def grbal_trainer_phase(dev, card):
     return trainer_phase(
         dev, card, run_grbal.ENTRY, cfg, HEADER_CSV,
         ('Pre-Loss', 'Post-Loss'),
-        lambda fs: dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN,
-                        pack=PATH_LEN, jacobi_solve=fs * PATH_LEN))
+        lambda solves: dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN,
+                            pack=PATH_LEN, jacobi_solve=solves * PATH_LEN))
 
 
 def mb_mpc_trainer_phase(dev, card):
@@ -964,8 +1125,8 @@ def mb_mpc_trainer_phase(dev, card):
     per_itr, total, trainer = trainer_phase(
         dev, card, run_mb_mpc.ENTRY, cfg, MB_HEADER_CSV,
         ('TrainLoss', 'ValidLoss'),
-        lambda fs: dict(NO_LAUNCH, fused_mlp=MB_HORIZON * t_len, pack=1,
-                        jacobi_solve=fs * t_len))
+        lambda solves: dict(NO_LAUNCH, fused_mlp=MB_HORIZON * t_len,
+                            pack=1, jacobi_solve=solves * t_len))
     sampling_profile(trainer.sampler, 'MB-MPC', card)
     return per_itr, total, trainer
 
@@ -981,7 +1142,7 @@ def rebal_trainer_phase(dev, card):
                max_path_length=PATH_LEN, resume=False, profile=False)
     per_itr, total, trainer = trainer_phase(
         dev, card, run_rebal.ENTRY, cfg, RB_HEADER_CSV, ('TrainLoss',),
-        lambda fs: dict(NO_LAUNCH, jacobi_solve=fs * PATH_LEN))
+        lambda solves: dict(NO_LAUNCH, jacobi_solve=solves * PATH_LEN))
     sampling_profile(trainer.sampler, 'ReBAL', card)
     return per_itr, total, trainer
 
@@ -994,8 +1155,6 @@ def sampling_profile(sampler, what, card):
     takes minutes to read): one under torch.profiler (device time and
     activities per step, busy share, device time per launch of both
     kernels), one watched for host waits as in phase 5."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from learning_to_adapt_torch.samplers import Sampler
     m, t_len = sampler.num_rollouts, sampler.max_path_length
     sampler.obtain_samples()
@@ -1005,46 +1164,51 @@ def sampling_profile(sampler, what, card):
                     adapt_batch_size=sampler.adapt_batch_size, seed=1,
                     device=sampler.device)
     short.obtain_samples()                          # warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        short.obtain_samples()
+    trace = profiled(short.obtain_samples)
     prof_s = short.last_seconds
-    on_device = [e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith('rollout.')
-                 and not getattr(e, 'is_user_annotation', False)]
-    device_us = sum(e.time_range.elapsed_us() for e in on_device)
     per_kernel = {}
     for kernel in KERNEL_NAMES:
-        runs = [e.time_range.elapsed_us() for e in on_device
-                if kernel in e.name]
+        launches = trace.launches(kernel)
         per_kernel[kernel] = dict(
-            launches=len(runs),
-            device_ms_per_launch=round(sum(runs) / max(len(runs), 1) / 1e3,
-                                       4))
-    device_ms_step = device_us / 1e3 / n
+            launches=launches, device_ms_per_launch=round(
+                trace.device_us(kernel) / max(launches, 1) / 1e3, 4))
+    device_ms_step = trace.device_us() / 1e3 / n
     log(f'{what} policy sampling, {m}x{t_len} steps on {card}: '
         f'{m * t_len / wall:.1f} env-steps/s ({wall * 1e3 / t_len:.2f} '
         f'ms/step); profile of {m}x{n} steps: '
         f'{prof_s * 1e3 / n:.2f} ms/step profiled, device time '
         f'{device_ms_step:.3f} ms/step, busy share '
         f'{device_ms_step * t_len / 1e3 / wall:.3f} of the unprofiled wall; '
-        f'{len(on_device) / n:.0f} device activities/step; '
+        f'{len(trace.device) / n:.0f} device activities/step; '
         'kernels ' + json.dumps(per_kernel))
     watch_host_syncs(short.obtain_samples, n,
                      f'one {n}-step {what} policy sampling call')
 
 
-def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key):
-    """Phase 13, one env: run_grbal from its command line (--env, --task)
-    at full width, paths of 100 steps, NEW_ENV_ITR iterations, in a
-    temporary directory. Returns (launches of the policy iteration, the
-    trainer)."""
+def solves_per_env_step(env):
+    """Jacobi launches per env step: frame_skip physics steps, each with
+    one constraint solve per dynamics pass of its integrator (RK4: 4)."""
+    from learning_to_adapt_torch.physics import engine
+    return env.frame_skip * engine.PASSES[env.model.integrator]
+
+
+def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key,
+                  module='run_grbal', n_itr=NEW_ENV_ITR):
+    """Phase 13, one env: an entry point (run_grbal, or run_mb_mpc) from its
+    command line (--env, --task) at full width, paths of 100 steps, n_itr
+    iterations (the first one random), in a temporary directory. Returns
+    (launches of a policy sampling call, the trainer)."""
+    import importlib
     import math
     import pickle
-    from learning_to_adapt_torch import run_grbal
-    cfg = run_grbal.config_from_args(run_grbal.parse_args(
-        ['--env', cls_name, '--task', task, '--n_itr', str(NEW_ENV_ITR),
+    entry = importlib.import_module(f'learning_to_adapt_torch.{module}')
+    loss_keys, mlp, packs = {
+        'run_grbal': (('Pre-Loss', 'Post-Loss'), HORIZON * PATH_LEN,
+                      PATH_LEN),
+        'run_mb_mpc': (('TrainLoss', 'ValidLoss'), MB_HORIZON * PATH_LEN, 1),
+    }[module]
+    cfg = entry.config_from_args(entry.parse_args(
+        ['--env', cls_name, '--task', task, '--n_itr', str(n_itr),
          '--seed', '0', '--exp_name', 'chip_smoke', '--device', str(dev)]))
     cfg['max_path_length'] = PATH_LEN
     cwd = os.getcwd()
@@ -1053,9 +1217,9 @@ def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key):
         try:
             t0 = time.time()
             record = []
-            trainer, total = run_trainer(run_grbal.ENTRY, cfg, record)
+            trainer, total = run_trainer(entry.ENTRY, cfg, record)
             run_s = time.time() - t0
-            exp_dir = run_grbal.ENTRY.experiment_dir(cfg)
+            exp_dir = entry.ENTRY.experiment_dir(cfg)
             header, rows = read_progress(exp_dir)
             with open(os.path.join(exp_dir, 'params.pkl'), 'rb') as f:
                 snap = pickle.load(f)
@@ -1067,24 +1231,24 @@ def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key):
         raise AssertionError(f'{cls_name}: progress.csv header {header!r} != '
                              f'the JAX run\'s {want_header!r}')
     for r in rows:
-        for k in ('Pre-Loss', 'Post-Loss', 'EnvTrajs-AverageReturn'):
+        for k in loss_keys + ('EnvTrajs-AverageReturn',):
             if not math.isfinite(float(r[k])):
                 raise AssertionError(f'{cls_name} itr {r["Itr"]}: {k} = '
                                      f'{r[k]}')
-    if [int(r['Itr']) for r in rows] != list(range(NEW_ENV_ITR)):
+    if [int(r['Itr']) for r in rows] != list(range(n_itr)):
         raise AssertionError(f'itrs {[r["Itr"] for r in rows]}')
     env = snap['env'].wrapped_env
     if not (type(env).__name__ == cls_name and env.task == task
-            and snap['itr'] == NEW_ENV_ITR - 1):
+            and snap['itr'] == n_itr - 1):
         raise AssertionError(f'{cls_name}: params.pkl did not re-create its '
                              'env')
-    physics = trainer.env.wrapped_env.frame_skip * PATH_LEN
-    policy = dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
+    physics = solves_per_env_step(trainer.env.wrapped_env) * PATH_LEN
+    policy = dict(NO_LAUNCH, fused_mlp=mlp, pack=packs,
                   **{jacobi_key: physics})
     want = {'random': dict(policy, fused_mlp=0, pack=0), 'policy': policy,
             'fit': NO_LAUNCH}
     got = [what for what, _ in record]
-    if got != ['random', 'fit', 'policy', 'fit']:
+    if got != ['random', 'fit'] + ['policy', 'fit'] * (n_itr - 1):
         raise AssertionError(f'{cls_name}: calls {got}')
     for what, counts in record:
         if counts != want[what]:
@@ -1092,20 +1256,20 @@ def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key):
                                  f'{want[what]}')
     if total != {k: sum(c[k] for _, c in record) for k in total}:
         raise AssertionError(f'{cls_name}: launches outside sampling and fit')
-    log(f'new env: run_grbal --env {cls_name} --task {task} (seed 0, '
-        f'{cfg["num_rollouts"]} envs x {PATH_LEN} steps, {NEW_ENV_ITR} itrs, '
+    log(f'new env: {module} --env {cls_name} --task {task} (seed 0, '
+        f'{cfg["num_rollouts"]} envs x {PATH_LEN} steps, {n_itr} itrs, '
         f'{cfg["dynamic_model_epochs"]} epochs max) on {card}: '
         f'{run_s:.1f} s; launches per call {json.dumps(record)}')
     for r in rows:
         diag = {k: round(float(r[k]), 4) for k in r
                 if k.startswith('EnvTrajs-') and 'Return' not in k}
+        losses = ', '.join(f'{k} {float(r[k]):.5f}' for k in loss_keys)
         log(f'  itr {r["Itr"]}: Time-EnvSampling '
             f'{float(r["Time-EnvSampling"]):.3f} s, Time-ModelFit '
             f'{float(r["Time-ModelFit"]):.3f} s, Epochs {r["Epochs"]}, '
-            f'Pre-Loss {float(r["Pre-Loss"]):.5f}, Post-Loss '
-            f'{float(r["Post-Loss"]):.5f}, AverageReturn '
+            f'{losses}, AverageReturn '
             f'{float(r["EnvTrajs-AverageReturn"]):.2f}, {json.dumps(diag)}')
-    return policy, trainer
+    return (policy if n_itr > 1 else record[0][1]), trainer
 
 
 def fit_data(model, n_paths, gen):
@@ -1130,8 +1294,6 @@ def time_fit_epochs(epoch, steps, what, card):
     as the fit does; steps: its train steps."""
     import math
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     t0 = time.time()
     losses = epoch()                                 # warm-up
     warm_s = time.time() - t0
@@ -1151,25 +1313,20 @@ def time_fit_epochs(epoch, steps, what, card):
         raise AssertionError(f'fit losses {losses}')
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    timed = {}
+
+    def window():
         t0 = time.time()
         epoch()
         torch.cuda.synchronize()
-        prof_s = time.time() - t0
-    evs = prof.events()
-    on_device = [e for e in evs if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith('fit.')
-                 and not getattr(e, 'is_user_annotation', False)]
-    device_us = sum(e.time_range.elapsed_us() for e in on_device)
+        timed['s'] = time.time() - t0
+    trace = profiled(window)
+    prof_s = timed['s']
+    device_us = trace.device_us()
     # host time of each labelled part (the kernels of a backward pass are
     # launched from autograd's device thread, outside these labels, so
     # device time is only read for the epoch as a whole)
-    parts = {}
-    for e in evs:
-        if e.device_type == DeviceType.CPU and e.name.startswith('fit.'):
-            n, host = parts.get(e.name, (0, 0.0))
-            parts[e.name] = (n + 1, host + e.time_range.elapsed_us())
+    parts = trace.parts('fit.')
     n_train = parts.get('fit.train_step', (0,))[0]
     if n_train != steps:
         raise AssertionError(f'{n_train} labelled train steps != {steps}')
@@ -1181,15 +1338,15 @@ def time_fit_epochs(epoch, steps, what, card):
         f'train step (validation included); {s_epoch:.3f} s per epoch')
     log(f'fit profile (one epoch): wall {prof_s:.3f} s profiled; device time '
         f'{device_us / 1e3 / steps:.4f} ms per train step (valid included), '
-        f'{len(on_device) / steps:.0f} device activities per train step; busy '
-        f'share {device_us / 1e6 / prof_s:.3f} of the profiled wall, '
+        f'{len(trace.device) / steps:.0f} device activities per train step; '
+        f'busy share {device_us / 1e6 / prof_s:.3f} of the profiled wall, '
         f'{device_us / 1e6 / s_epoch:.3f} of the unprofiled wall; parts '
         '(host, profiled) ' + json.dumps(
             {k: dict(calls=n, host_ms_per_call=round(h / n / 1e3, 4))
              for k, (n, h) in parts.items()}))
     top = {}
-    for e in on_device:
-        top[e.name[:60]] = top.get(e.name[:60], 0) + e.time_range.elapsed_us()
+    for name, ns, _ in trace.device:
+        top[name[:60]] = top.get(name[:60], 0) + ns / 1e3
     log('fit profile top device activities (ms per train step): ' +
         json.dumps({k: round(us / 1e3 / steps, 4) for k, us in sorted(
             top.items(), key=lambda kv: -kv[1])[:8]}))
@@ -1340,6 +1497,8 @@ def main():
                check_jacobi_cluster(dev, cluster_floor_lib)]
     kernels[0].update(check_fused_mlp_mb_mpc(dev))
     kernels[0].update(check_fused_mlp_arm(dev))
+    kernels[0].update(check_fused_mlp_ant(dev))
+    kernels[1].update(check_jacobi_ant(dev))
     stamp('kernels')
     launches, sampler = main_path(dev, card)
     profile_policy_steps(dev, sampler)
@@ -1365,9 +1524,15 @@ def main():
         env_itr[cls_name], env_trainer = new_env_phase(
             dev, card, cls_name, task, header, jacobi_key)
         stamp(f'GrBAL on {cls_name}')
-        if cls_name == 'HalfCheetahBlocksEnv':
-            sampling_profile(env_trainer.sampler, 'GrBAL blocks', card)
-            stamp('GrBAL blocks sampling profile')
+        if cls_name in ('HalfCheetahBlocksEnv', 'AntEnv'):
+            what = {'HalfCheetahBlocksEnv': 'blocks', 'AntEnv': 'Ant'}
+            sampling_profile(env_trainer.sampler,
+                             f'GrBAL {what[cls_name]}', card)
+            stamp(f'GrBAL {what[cls_name]} sampling profile')
+    ant_mb_random, _ = new_env_phase(dev, card, 'AntEnv', 'cripple',
+                                     ANT_MB_HEADER, 'jacobi_solve',
+                                     module='run_mb_mpc', n_itr=1)
+    stamp('MB-MPC on AntEnv')
     for k in kernels:
         # the cluster kernel's main path is the blocks env's
         k['launches'] = (env_itr['HalfCheetahBlocksEnv'][k['name']]
@@ -1380,8 +1545,10 @@ def main():
         k['rebal_trainer_launches'] = rb_total[k['name']]
         for cls_name, key in (('HalfCheetahHFieldEnv', 'hfield_launches'),
                               ('HalfCheetahBlocksEnv', 'blocks_launches'),
-                              ('Arm7DofEnv', 'arm_launches')):
+                              ('Arm7DofEnv', 'arm_launches'),
+                              ('AntEnv', 'ant_launches')):
             k[key] = env_itr[cls_name][k['name']]
+        k['ant_mb_mpc_random_launches'] = ant_mb_random[k['name']]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
             'library_device_ms', 'device_ms', 'floor_ms', 'ms_512',
@@ -1389,11 +1556,15 @@ def main():
             'trainer_launches', 'mb_mpc_launches', 'rebal_launches',
             'mb_mpc_trainer_launches', 'rebal_trainer_launches',
             'hfield_launches', 'blocks_launches', 'arm_launches',
+            'ant_launches', 'ant_mb_mpc_random_launches',
             'mb_mpc_max_abs_err', 'mb_mpc_ms', 'mb_mpc_device_ms',
             'mb_mpc_plain_ms', 'mb_mpc_bound_ms', 'mb_mpc_library_ms',
             'mb_mpc_library_device_ms', 'arm_max_abs_err', 'arm_ms',
             'arm_device_ms', 'arm_plain_ms', 'arm_bound_ms',
-            'arm_library_ms', 'arm_library_device_ms')
+            'arm_library_ms', 'arm_library_device_ms', 'ant_rows',
+            'ant_max_abs_err', 'ant_ms', 'ant_ms_cold', 'ant_device_ms',
+            'ant_plain_ms', 'ant_bound_ms', 'ant_library_ms',
+            'ant_library_device_ms')
     log(f'total {time.time() - t_start:.1f} s')
     log(card_line())
     log(json.dumps({'kernels': [{k: kern.get(k) for k in keys}

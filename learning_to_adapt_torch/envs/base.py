@@ -5,7 +5,7 @@ bundle of functions over an explicit EnvState whose tensors carry a leading
 env axis (where the JAX package vmaps over one-env functions):
 
     reset(n_envs, episode_idx, generator) -> EnvState
-    step(state, action)  -> (EnvState, obs, reward, done, info)
+    step(state, action[, noise])  -> (EnvState, obs, reward, done, info)
     reward(obs, act, next_obs)  # batched planner-side reward
 
 Tasks (dynamics perturbations) are data inside EnvState.mm (a MutableModel)
@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from learning_to_adapt_torch.device import resolve_device
+from learning_to_adapt_torch.envs import spaces
+from learning_to_adapt_torch.envs.env_spec import EnvSpec
 from learning_to_adapt_torch.physics import engine
 from learning_to_adapt_torch.physics.spec import (
     MutableModel, PhysicsModel, batched_mutable, default_mutable)
@@ -37,6 +39,7 @@ class EnvState:
     obs: Any          # (E, obs_dim) current observation
     t: Any            # (E,) int32 steps taken in current episode
     episode: Any      # (E,) int32 episode counter
+    rng: Any = None   # torch.Generator of the action noise (the reset's)
 
 
 class TorchEnv(Serializable):
@@ -48,20 +51,29 @@ class TorchEnv(Serializable):
 
     name: str = 'env'
 
-    #: float32 physics, as the JAX envs run by default
-    dtype = torch.float32
-
-    def __init__(self, task=None, reset_every_episode=False, device='cuda'):
+    def __init__(self, task=None, reset_every_episode=False, frame_skip=None,
+                 action_noise=0.0, dtype=torch.float32,
+                 instability_recovery=True, device='cuda'):
+        """frame_skip overrides the model's physics steps per env step;
+        action_noise adds 0.5 (hi - lo) action_noise N(0, 1) to the masked
+        action; dtype is the physics' (float32, as the JAX envs run by
+        default, or float64); instability_recovery=False gives the raw
+        engine output (the physics-parity mode of the JAX env)."""
         if not getattr(self, '_serializable_initialized', False):
             # fallback capture for subclasses that do not quick_init
             Serializable.quick_init(self, locals())
         task = None if task == 'None' else task
         self.task = task
         self.reset_every_episode = reset_every_episode
+        self.action_noise = action_noise
+        self.instability_recovery = instability_recovery
+        self.dtype = dtype
         self.device = resolve_device(device)
         self.model: PhysicsModel = self._build_model()
-        self.mm0: MutableModel = default_mutable(self.model, np.float32)
-        self.frame_skip = self.model.frame_skip
+        self.mm0: MutableModel = default_mutable(
+            self.model, np.float64 if dtype == torch.float64 else np.float32)
+        self.frame_skip = (frame_skip if frame_skip is not None
+                           else self.model.frame_skip)
         self.dt = self.model.timestep
         self.act_dim = self.model.nu
         self.obs_dim = self._obs_dim()
@@ -121,42 +133,53 @@ class TorchEnv(Serializable):
                                       episode_idx > 0):
             mm, task = self.sample_task(generator, mm, task)
         phys = self.init_state(n_envs, generator)
-        return self.reset_to(phys, mm, task, episode_idx)
+        return self.reset_to(phys, mm, task, episode_idx, generator)
 
-    def reset_to(self, phys, mm, task, episode_idx=0) -> EnvState:
-        """EnvState for given initial physics state and task."""
+    def reset_to(self, phys, mm, task, episode_idx=0, rng=None) -> EnvState:
+        """EnvState for given initial physics state and task; rng is the
+        generator the action noise draws from."""
         n_envs = phys.qpos.shape[0]
         data = engine.forward(self.model, mm, phys)
         return EnvState(
             phys=phys, mm=mm, task=task, obs=self.observe(data, phys),
             t=torch.zeros(n_envs, dtype=torch.int32, device=self.device),
             episode=torch.full((n_envs,), episode_idx, dtype=torch.int32,
-                               device=self.device))
+                               device=self.device), rng=rng)
 
-    def step(self, state: EnvState, action):
-        """One env step for every env: mask crippled actuators, frame_skip
-        physics substeps, recover diverged envs, recompute obs/reward."""
+    def step(self, state: EnvState, action, noise=None):
+        """One env step for every env: mask crippled actuators, add the
+        action noise (its N(0, 1) draw from state.rng, or `noise` when
+        given), frame_skip physics substeps, recover diverged envs,
+        recompute obs/reward."""
         action = state.task['cripple_mask'] * action
+        if self.action_noise > 0:
+            if noise is None:
+                noise = torch.randn(action.shape, generator=state.rng,
+                                    dtype=action.dtype, device=action.device)
+            lo, hi = self.action_space_bounds
+            action = action + 0.5 * (hi - lo) * (self.action_noise * noise)
         phys = state.phys
         for _ in range(self.frame_skip):
             phys = engine.step(self.model, state.mm, phys, action)
-        # instability recovery, the JAX package's documented deviation from
-        # MuJoCo: a diverged env goes back to its pre-step pose at rest, so
-        # non-finite states never reach the rollout data
-        finite = (torch.isfinite(phys.qpos).all(-1) &
-                  torch.isfinite(phys.qvel).all(-1))
-        bad = ~finite | (torch.abs(phys.qvel).amax(-1) > UNSTABLE_QVEL)
-        bad = bad[:, None]
-        phys = engine.PhysicsState(
-            qpos=torch.where(bad, state.phys.qpos, phys.qpos),
-            qvel=torch.where(bad, torch.zeros_like(phys.qvel), phys.qvel))
+        if self.instability_recovery:
+            # the JAX package's documented deviation from MuJoCo: a
+            # diverged env goes back to its pre-step pose at rest, so
+            # non-finite states never reach the rollout data
+            finite = (torch.isfinite(phys.qpos).all(-1) &
+                      torch.isfinite(phys.qvel).all(-1))
+            bad = ~finite | (torch.abs(phys.qvel).amax(-1) > UNSTABLE_QVEL)
+            bad = bad[:, None]
+            phys = engine.PhysicsState(
+                qpos=torch.where(bad, state.phys.qpos, phys.qpos),
+                qvel=torch.where(bad, torch.zeros_like(phys.qvel), phys.qvel))
         # the applied ctrl fills ForwardData.qfrc_actuator (mj_forward)
         data = engine.forward(self.model, state.mm, phys, ctrl=action)
         obs = self.observe(data, phys)
         reward = self.step_reward(data, action)
         done = torch.zeros(obs.shape[0], dtype=torch.bool, device=obs.device)
         new_state = EnvState(phys=phys, mm=state.mm, task=state.task,
-                             obs=obs, t=state.t + 1, episode=state.episode)
+                             obs=obs, t=state.t + 1, episode=state.episode,
+                             rng=state.rng)
         return new_state, obs, reward, done, {}
 
     def log_diagnostics(self, paths, prefix=''):
@@ -175,15 +198,71 @@ class TorchEnv(Serializable):
     def body_com(self, data, body_name):
         return data.subtree_com[:, self.model.body_id(body_name)]
 
+    @property
+    def action_space(self):
+        """Box of the actuators' ctrlrange."""
+        return spaces.Box(self.model.act_ctrlrange[:, 0],
+                          self.model.act_ctrlrange[:, 1])
+
+    @property
+    def observation_space(self):
+        big = 1e6
+        return spaces.Box(-big * np.ones(self.obs_dim),
+                          big * np.ones(self.obs_dim))
+
+    @property
+    def spec(self):
+        return EnvSpec(self.observation_space, self.action_space)
+
 
 class NormalizedEnv(Serializable):
     """Action-normalizing wrapper: planner/policy space is [-1,1]^act_dim,
-    rescaled and clipped to the env bounds (envs/base.py NormalizedEnv; its
-    optional running obs/reward normalization is not ported)."""
+    rescaled and clipped to the env bounds (envs/base.py NormalizedEnv).
 
-    def __init__(self, env: TorchEnv):
+    Optional running mean/std normalization of one env's observation and
+    reward on the host (maybe_normalize), off by default as in every run
+    script; the sampler always consumes raw observations. scale_reward is
+    ignored (a hard-coded 1), as in the JAX wrapper."""
+
+    def __init__(self, env: TorchEnv, scale_reward=1.0, normalize_obs=False,
+                 normalize_reward=False, obs_alpha=0.001, reward_alpha=0.001):
         Serializable.quick_init(self, locals())
         self.wrapped_env = env
+        self._normalize_obs = normalize_obs
+        self._normalize_reward = normalize_reward
+        self._obs_alpha = obs_alpha
+        self._obs_mean = np.zeros(env.obs_dim)
+        self._obs_var = np.ones(env.obs_dim)
+        self._reward_alpha = reward_alpha
+        self._reward_mean = 0.0
+        self._reward_var = 1.0
+
+    def _update_obs_estimate(self, obs):
+        a = self._obs_alpha
+        self._obs_mean = (1 - a) * self._obs_mean + a * obs
+        self._obs_var = (1 - a) * self._obs_var + \
+            a * np.square(obs - self._obs_mean)
+
+    def _update_reward_estimate(self, reward):
+        a = self._reward_alpha
+        self._reward_mean = (1 - a) * self._reward_mean + a * reward
+        self._reward_var = (1 - a) * self._reward_var + \
+            a * np.square(reward - self._reward_mean)
+
+    def maybe_normalize(self, obs, reward):
+        """(obs, reward) of one env step through the running normalization
+        (exponential moving averages with rates obs_alpha / reward_alpha);
+        a no-op unless enabled."""
+        if self._normalize_obs:
+            obs = (obs.detach().cpu().numpy() if torch.is_tensor(obs)
+                   else np.asarray(obs))
+            self._update_obs_estimate(obs)
+            obs = (obs - self._obs_mean) / (np.sqrt(self._obs_var) + 1e-8)
+        if self._normalize_reward:
+            reward = float(reward)
+            self._update_reward_estimate(reward)
+            reward = reward / (np.sqrt(self._reward_var) + 1e-8)
+        return obs, reward
 
     def __getattr__(self, name):
         # never delegate private/dunder lookups
@@ -191,13 +270,19 @@ class NormalizedEnv(Serializable):
             raise AttributeError(name)
         return getattr(self.wrapped_env, name)
 
+    @property
+    def action_space(self):
+        d = self.wrapped_env.act_dim
+        return spaces.Box(-np.ones(d), np.ones(d))
+
     def denormalize_action(self, action):
         lo, hi = self.wrapped_env.action_space_bounds
         scaled = lo + (action + 1.0) * 0.5 * (hi - lo)
         return torch.clamp(scaled, lo, hi)
 
-    def step(self, state, action):
-        return self.wrapped_env.step(state, self.denormalize_action(action))
+    def step(self, state, action, noise=None):
+        return self.wrapped_env.step(state, self.denormalize_action(action),
+                                     noise)
 
     def reset(self, n_envs, episode_idx=0, generator=None):
         return self.wrapped_env.reset(n_envs, episode_idx, generator)

@@ -1,14 +1,17 @@
 """Programmatic model definitions.
 
-The specs of the Euler-integrated environments (HalfCheetah, its terrain
-and blocks variants, the 7-DoF arm), transcribed from the same model facts
-as learning_to_adapt_tpu/envs/model_defs.py (masses, lengths, gains). The
-Ant's spec follows with its free joint and RK4 in a later slice of the port.
+The specs of the five environments (HalfCheetah, its terrain and blocks
+variants, the Ant, the 7-DoF arm), transcribed from the same model facts
+as learning_to_adapt_tpu/envs/model_defs.py (masses, lengths, gains).
 """
+import numpy as np
+
 from learning_to_adapt_torch.physics.spec import (
-    BOX, CAPSULE, EULER, HFIELD, HINGE, PLANE, SLIDE, SPHERE, ActuatorSpec,
-    BodySpec, GeomSpec, HFieldSpec, JointSpec, ModelSpec, OptionSpec,
-    compile_spec)
+    BOX, CAPSULE, EULER, FREE, HFIELD, HINGE, PLANE, RK4, SLIDE, SPHERE,
+    ActuatorSpec, BodySpec, GeomSpec, HFieldSpec, JointSpec, ModelSpec,
+    OptionSpec, compile_spec)
+
+DEG = np.pi / 180.0
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +171,80 @@ def half_cheetah_blocks_spec() -> ModelSpec:
 
 
 # ---------------------------------------------------------------------------
+# ant
+# ---------------------------------------------------------------------------
+
+def _ant_geom(**kw):
+    base = dict(type=CAPSULE, condim=3, contype=1, conaffinity=0,
+                margin=0.01, friction=(1.0, 0.5, 0.5), solref=(.02, 1.),
+                solimp=(.8, .8, .01), density=5.0)
+    base.update(kw)
+    return GeomSpec(**base)
+
+
+def _ant_joint(**kw):
+    base = dict(type=HINGE, limited=True, armature=1.0, damping=1.0)
+    base.update(kw)
+    return JointSpec(**base)
+
+
+def ant_spec() -> ModelSpec:
+    def leg(idx, sx, sy, hip_name, ankle_name, ankle_axis, ankle_range_deg,
+            geom_names):
+        """One ant leg: aux geom on a welded shoulder body, hip + ankle."""
+        foot = BodySpec(
+            name=f'foot_{idx}', pos=(sx * 0.2, sy * 0.2, 0),
+            joints=[_ant_joint(name=ankle_name, axis=ankle_axis,
+                               range=(ankle_range_deg[0] * DEG,
+                                      ankle_range_deg[1] * DEG))],
+            geoms=[_ant_geom(name=geom_names[2], size=(0.08,),
+                             fromto=(0, 0, 0, sx * 0.4, sy * 0.4, 0))])
+        shin = BodySpec(
+            name=f'aux_{idx}', pos=(sx * 0.2, sy * 0.2, 0),
+            joints=[_ant_joint(name=hip_name, axis=(0, 0, 1),
+                               range=(-30 * DEG, 30 * DEG))],
+            geoms=[_ant_geom(name=geom_names[1], size=(0.08,),
+                             fromto=(0, 0, 0, sx * 0.2, sy * 0.2, 0))],
+            children=[foot])
+        return BodySpec(
+            name=f'leg_{idx}', pos=(0, 0, 0),
+            geoms=[_ant_geom(name=geom_names[0], size=(0.08,),
+                             fromto=(0, 0, 0, sx * 0.2, sy * 0.2, 0))],
+            children=[shin])
+
+    torso = BodySpec(
+        name='torso', pos=(0, 0, 0.75),
+        joints=[JointSpec(type=FREE, name='root')],
+        geoms=[_ant_geom(name='torso_geom', type=SPHERE, size=(0.25,))],
+        children=[
+            leg(1, 1, 1, 'hip_1', 'ankle_1', (-1, 1, 0), (30, 70),
+                ('aux_1_geom', 'left_leg_geom', 'left_ankle_geom')),
+            leg(2, -1, 1, 'hip_2', 'ankle_2', (1, 1, 0), (-70, -30),
+                ('aux_2_geom', 'right_leg_geom', 'right_ankle_geom')),
+            leg(3, -1, -1, 'hip_3', 'ankle_3', (-1, 1, 0), (-70, -30),
+                ('aux_3_geom', 'back_leg_geom', 'third_ankle_geom')),
+            leg(4, 1, -1, 'hip_4', 'ankle_4', (1, 1, 0), (30, 70),
+                ('aux_4_geom', 'rightback_leg_geom', 'fourth_ankle_geom')),
+        ])
+    floor = GeomSpec(type=PLANE, name='floor', size=(40, 40, 40), contype=1,
+                     conaffinity=1, condim=3, margin=0.01,
+                     friction=(1.0, 0.5, 0.5), solref=(.02, 1.),
+                     solimp=(.8, .8, .01))
+    acts = [ActuatorSpec(joint=j, gear=1.0, ctrlrange=(-150., 150.))
+            for j in ('hip_4', 'ankle_4', 'hip_1', 'ankle_1',
+                      'hip_2', 'ankle_2', 'hip_3', 'ankle_3')]
+    return ModelSpec(
+        name='ant',
+        option=OptionSpec(timestep=0.02, gravity=(0, 0, -9.81),
+                          integrator=RK4),
+        world_geoms=[floor],
+        bodies=[torso],
+        actuators=acts,
+        init_qpos=(0.0, 0.0, 0.55, 1.0, 0.0, 0.0, 0.0,
+                   0.0, 1.0, 0.0, -1.0, 0.0, -1.0, 0.0, 1.0))
+
+
+# ---------------------------------------------------------------------------
 # 7-dof arm
 # ---------------------------------------------------------------------------
 
@@ -291,6 +368,7 @@ _SPEC_FNS = {
     'half_cheetah': half_cheetah_spec,
     'half_cheetah_hfield': half_cheetah_hfield_spec,
     'half_cheetah_blocks': half_cheetah_blocks_spec,
+    'ant': ant_spec,
     'arm_7dof': arm_7dof_spec,
 }
 

@@ -14,8 +14,8 @@ import os
 
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.envs import (
-    Arm7DofEnv, HalfCheetahBlocksEnv, HalfCheetahEnv, HalfCheetahHFieldEnv,
-    normalize)
+    AntEnv, Arm7DofEnv, HalfCheetahBlocksEnv, HalfCheetahEnv,
+    HalfCheetahHFieldEnv, normalize)
 from learning_to_adapt_torch.samplers import ModelSampleProcessor, Sampler
 from learning_to_adapt_torch.trainers import Trainer
 from learning_to_adapt_torch.utils import logging as logger
@@ -24,10 +24,9 @@ from learning_to_adapt_torch.utils.config import (
     ClassEncoder, add_task_distribution_args, apply_task_distribution_args,
     check_resume_config, task_env_kwargs)
 
-#: envs the port has: every Euler-integrated env of the JAX package. AntEnv
-#: (free joint, RK4) is the next slice, ROADMAP queue 1, item 8
+#: the envs --env names: every env of the JAX package
 ENVS = {c.__name__: c for c in (HalfCheetahEnv, HalfCheetahHFieldEnv,
-                                HalfCheetahBlocksEnv, Arm7DofEnv)}
+                                HalfCheetahBlocksEnv, AntEnv, Arm7DofEnv)}
 
 
 class EntryPoint:
@@ -127,10 +126,8 @@ class EntryPoint:
         cfg = dict(self.config)
         if args.env:
             if args.env not in ENVS:
-                raise NotImplementedError(
-                    f'{args.env} is not ported yet (ROADMAP.md queue 1, '
-                    'item 8: the Ant slice, with free joints, RK4 and the '
-                    f'PGS branch); the port has {sorted(ENVS)}')
+                raise ValueError(f'unknown --env {args.env!r}; the port has '
+                                 f'{sorted(ENVS)}')
             cfg['env'] = ENVS[args.env]
         if args.task:
             cfg['task'] = args.task

@@ -1,13 +1,12 @@
 """Articulated rigid-body dynamics, batched over a leading env axis.
 
-Counterpart of learning_to_adapt_tpu/physics/engine.py for the feature set
-of the Euler-integrated envs (HalfCheetah, its terrain and blocks variants,
-the 7-DoF arm): hinge and slide joints, every narrow-phase pair kind of
-physics/collision.py, MuJoCo-style soft constraints solved by projected
-Jacobi (the kernels in ops/jacobi.py), and the semi-implicit Euler
-integrator. Where the
-JAX engine is written for one env and vmapped, every function here takes
-(E, ...) tensors: qpos (E, nq), qvel (E, nv), ctrl (E, nu) and a
+Counterpart of learning_to_adapt_tpu/physics/engine.py: free, hinge and
+slide joints, every narrow-phase pair kind of physics/collision.py,
+MuJoCo-style soft constraints solved by projected Jacobi (the kernels in
+ops/jacobi.py) or, where a model asks for it, projected Gauss-Seidel in
+plain tensor ops, and the semi-implicit Euler and RK4 integrators. Where
+the JAX engine is written for one env and vmapped, every function here
+takes (E, ...) tensors: qpos (E, nq), qvel (E, nv), ctrl (E, nu) and a
 MutableModel whose fields carry the env axis too.
 
 Pipeline per step (world-frame Pluecker spatial algebra, about the origin):
@@ -15,7 +14,8 @@ Pipeline per step (world-frame Pluecker spatial algebra, about the origin):
   2. body spatial velocities, bias forces (RNE), mass matrix (CRBA)
   3. narrow-phase collisions on the static candidate-pair list
   4. soft-constraint assembly (contacts + joint limits) and projected Jacobi
-  5. semi-implicit Euler with implicit joint damping
+  5. semi-implicit Euler with implicit joint damping, or RK4 (1-4 run four
+     times a step)
 
 Everything static about a model — its constants as device tensors and the
 row structure of its constraint system, which the JAX engine builds in
@@ -34,7 +34,12 @@ from learning_to_adapt_torch.ops.jacobi import jacobi_solve
 from learning_to_adapt_torch.physics import collision as coll
 from learning_to_adapt_torch.physics import maths
 from learning_to_adapt_torch.physics.spec import (
-    EULER, FREE, HINGE, SLIDE, MutableModel, PhysicsModel)
+    EULER, FREE, HINGE, RK4, SLIDE, MutableModel, PhysicsModel)
+
+
+#: dynamics passes per physics step by integrator, each with its constraint
+#: solve (one Jacobi launch)
+PASSES = {EULER: 1, RK4: 4}
 
 
 @dataclass
@@ -61,13 +66,6 @@ class ModelTensors:
     rows, then frictionless contacts, then 4 pyramid facets per contact."""
 
     def __init__(self, model: PhysicsModel, device, dtype):
-        if model.integrator != EULER:
-            raise NotImplementedError('only the Euler integrator is ported')
-        if model.solver != 'jacobi':
-            raise NotImplementedError("only the 'jacobi' solver is ported")
-        if np.any(model.jnt_type == FREE):
-            raise NotImplementedError('free joints are not ported yet')
-
         def t(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -92,7 +90,8 @@ class ModelTensors:
         self.dof_body = ix(model.dof_body)
         self.a_grav = torch.cat([torch.zeros(3, dtype=dtype, device=device),
                                  -t(model.gravity)])
-        stiff = [ji for ji in range(model.njnt) if model.jnt_stiffness[ji] > 0]
+        stiff = [ji for ji in range(model.njnt)
+                 if model.jnt_stiffness[ji] > 0 and model.jnt_type[ji] != FREE]
         self.stiff_dadr = ix([model.jnt_dofadr[ji] for ji in stiff])
         self.stiff_qadr = ix([model.jnt_qposadr[ji] for ji in stiff])
         self.stiff_k = t([model.jnt_stiffness[ji] for ji in stiff])
@@ -107,8 +106,24 @@ class ModelTensors:
         # 'cuda') inside a step would copy from the host and wait for the card
         self.quat_identity = t([1., 0., 0., 0.])
         self.unit_x, self.unit_y = t([1., 0., 0.]), t([0., 1., 0.])
-        # hinge/slide joints only: qpos and qvel share addresses
-        self.q_dof = ix([int(model.jnt_dofadr[ji]) for ji in range(model.njnt)])
+        self.free_cdof_lin = torch.cat([torch.zeros((3, 3), dtype=dtype,
+                                                    device=device),
+                                        torch.eye(3, dtype=dtype,
+                                                  device=device)], dim=-1)
+        # position integration in qpos order: a free joint's 7 coordinates
+        # take 6 dofs, so the addresses split at each free joint into runs
+        # of scalar (hinge, slide) joints, each a gather of its dofs
+        self.q_runs = []
+        for ji in np.argsort(model.jnt_qposadr, kind='stable'):
+            qadr, dadr = int(model.jnt_qposadr[ji]), int(model.jnt_dofadr[ji])
+            if model.jnt_type[ji] == FREE:
+                self.q_runs.append((FREE, qadr, dadr))
+            elif self.q_runs and self.q_runs[-1][0] != FREE:
+                self.q_runs[-1][2].append(dadr)
+            else:
+                self.q_runs.append((HINGE, qadr, [dadr]))
+        self.q_runs = [(kind, qadr, d if kind == FREE else ix(d))
+                       for kind, qadr, d in self.q_runs]
         # the constraint rows need the compile-time weights, which
         # spec._with_invweights computes with smooth_dynamics alone
         self.nrows = None
@@ -230,7 +245,17 @@ def _fk(model: PhysicsModel, mt: ModelTensors, qpos):
             jt = int(model.jnt_type[ji])
             qadr = int(model.jnt_qposadr[ji])
             dadr = int(model.jnt_dofadr[ji])
-            if jt == SLIDE:
+            if jt == FREE:
+                pos = qpos[:, qadr:qadr + 3]
+                quat = maths.quat_normalize(qpos[:, qadr + 3:qadr + 7])
+                r = maths.quat_to_mat(quat)
+                for k in range(3):  # translational dofs, world axes
+                    cdof[dadr + k] = mt.free_cdof_lin[k].expand(n_env, 6)
+                for k in range(3):  # rotational dofs, body-local axes
+                    axis_w = r[..., k]
+                    cdof[dadr + 3 + k] = torch.cat(
+                        [axis_w, maths.cross3(pos, axis_w)], dim=-1)
+            elif jt == SLIDE:
                 axis_w = maths.quat_rotate(quat, mt.jnt_axis[ji])
                 pos = pos + axis_w * (qpos[:, qadr:qadr + 1] -
                                       model.jnt_ref[ji])
@@ -518,13 +543,30 @@ def constraint_forces(model: PhysicsModel, mm: MutableModel,
     qacc_smooth = _cho_solve(chol, qfrc_smooth[..., None])[..., 0]
     b_vec = ((J @ qacc_smooth[..., None])[..., 0] - aref) * activef
 
-    # projected Jacobi with adaptive under-relaxation: omega = 1/rho with rho
-    # the row-sum bound on the spectral radius of D^-1 A
-    rho = torch.amax(torch.sum(torch.abs(A), dim=-1) * a_ii_inv, dim=-1)
-    omega = torch.clamp(1.8 / torch.clamp(rho, min=1e-10), max=1.0)
-    f = jacobi_solve(A, b_vec, a_ii_inv, omega, 2 * model.iterations)
+    if model.solver == 'jacobi':
+        # projected Jacobi with adaptive under-relaxation: omega = 1/rho with
+        # rho the row-sum bound on the spectral radius of D^-1 A
+        rho = torch.amax(torch.sum(torch.abs(A), dim=-1) * a_ii_inv, dim=-1)
+        omega = torch.clamp(1.8 / torch.clamp(rho, min=1e-10), max=1.0)
+        f = jacobi_solve(A, b_vec, a_ii_inv, omega, 2 * model.iterations)
+    else:
+        f = _pgs(A, b_vec, a_ii_inv, model.iterations)
     f = f * activef
     return (J.transpose(-1, -2) @ f[..., None])[..., 0]
+
+
+def _pgs(A, b, a_ii_inv, iterations):
+    """Projected Gauss-Seidel from f = 0: `iterations` sweeps, each a pass
+    over the rows in order that updates f in place (the JAX engine's
+    lax.scan branch). Plain tensor ops, a few small launches a row: no
+    model selects it, and the Jacobi kernels stay the solve on the card."""
+    f = torch.zeros_like(b)
+    for _ in range(iterations):
+        for i in range(b.shape[-1]):
+            fi = f[:, i] - (torch.sum(A[:, i] * f, dim=-1) + b[:, i]) * \
+                a_ii_inv[:, i]
+            f[:, i] = torch.clamp(fi, min=0.0)
+    return f
 
 
 def _cho_solve(chol, rhs):
@@ -538,25 +580,83 @@ def _cho_solve(chol, rhs):
 
 
 def _integrate_pos(mt: ModelTensors, qpos, qvel, dt):
-    """qpos <- qpos + dt*qvel (hinge and slide joints)."""
-    return qpos + dt * qvel[:, mt.q_dof]
+    """qpos <- qpos (+) dt*qvel: linear for hinge, slide and a free joint's
+    position, quat_integrate for a free joint's orientation (its angular
+    velocity is in the body frame)."""
+    parts = []
+    for kind, qadr, dof in mt.q_runs:
+        if kind == FREE:
+            parts.append(qpos[:, qadr:qadr + 3] +
+                         dt * qvel[:, dof:dof + 3])
+            parts.append(maths.quat_integrate(
+                qpos[:, qadr + 3:qadr + 7], qvel[:, dof + 3:dof + 6],
+                dt))
+        else:
+            n = dof.shape[0]
+            parts.append(qpos[:, qadr:qadr + n] + dt * qvel[:, dof])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _qacc(model, mm, state, ctrl, implicit_damping):
+    """Generalized acceleration of one dynamics pass: smooth dynamics, the
+    constraint solve, and a Cholesky solve with M + h*D (Euler's implicit
+    joint damping) or M (RK4)."""
+    mass_mat, qfrc_smooth, aux = smooth_dynamics(model, mm, state, ctrl)
+    qfrc_con = constraint_forces(model, mm, state, mass_mat, qfrc_smooth,
+                                 aux)
+    if implicit_damping:
+        mass_mat = mass_mat + model.timestep * torch.diag_embed(
+            mm.dof_damping)
+    chol, _ = torch.linalg.cholesky_ex(mass_mat)
+    return _cho_solve(chol, (qfrc_smooth + qfrc_con)[..., None])[..., 0]
 
 
 def step(model: PhysicsModel, mm: MutableModel, state: PhysicsState,
          ctrl) -> PhysicsState:
     """Advance one physics timestep (the `mj_step` equivalent): Euler with
-    implicit joint damping, (M + h*D) qacc = qfrc."""
+    implicit joint damping, (M + h*D) qacc = qfrc, or classic RK4 (four
+    dynamics passes, each with its constraint solve)."""
     h = model.timestep
     mt = _mt(model, state.qpos)
-    mass_mat, qfrc_smooth, aux = smooth_dynamics(model, mm, state, ctrl)
-    qfrc_con = constraint_forces(model, mm, state, mass_mat, qfrc_smooth,
-                                 aux)
-    mass_int = mass_mat + h * torch.diag_embed(mm.dof_damping)
-    chol_int, _ = torch.linalg.cholesky_ex(mass_int)
-    qacc = _cho_solve(chol_int, (qfrc_smooth + qfrc_con)[..., None])[..., 0]
-    qvel = state.qvel + h * qacc
-    qpos = _integrate_pos(mt, state.qpos, qvel, h)
-    return PhysicsState(qpos=qpos, qvel=qvel)
+    if model.integrator == EULER:
+        qacc = _qacc(model, mm, state, ctrl, implicit_damping=True)
+        qvel = state.qvel + h * qacc
+        return PhysicsState(qpos=_integrate_pos(mt, state.qpos, qvel, h),
+                            qvel=qvel)
+    if model.integrator == RK4:
+        def deriv(s):
+            return s.qvel, _qacc(model, mm, s, ctrl, implicit_damping=False)
+        v1, a1 = deriv(state)
+        v2, a2 = deriv(PhysicsState(
+            _integrate_pos(mt, state.qpos, v1, 0.5 * h),
+            state.qvel + 0.5 * h * a1))
+        v3, a3 = deriv(PhysicsState(
+            _integrate_pos(mt, state.qpos, v2, 0.5 * h),
+            state.qvel + 0.5 * h * a2))
+        v4, a4 = deriv(PhysicsState(
+            _integrate_pos(mt, state.qpos, v3, h), state.qvel + h * a3))
+        v_avg = (v1 + 2 * v2 + 2 * v3 + v4) / 6.0
+        a_avg = (a1 + 2 * a2 + 2 * a3 + a4) / 6.0
+        return PhysicsState(qpos=_integrate_pos(mt, state.qpos, v_avg, h),
+                            qvel=state.qvel + h * a_avg)
+    raise ValueError(f'integrator {model.integrator}')
+
+
+def energy(model: PhysicsModel, mm: MutableModel, state: PhysicsState):
+    """(potential (E,), kinetic (E,)), the mj_energy pair: potential =
+    -sum_i m_i g . com_i + 0.5 sum_j k_j (q_j - springref_j)^2 over
+    non-free joints; kinetic = 0.5 qvel^T M qvel (armature included)."""
+    mt = _mt(model, state.qpos)
+    ctrl = torch.zeros((state.qpos.shape[0], model.nu), dtype=mt.dtype,
+                       device=mt.device)
+    mass_mat, _, aux = smooth_dynamics(model, mm, state, ctrl)
+    pot = -torch.sum(mm.body_mass * (aux['xipos'] @ -mt.a_grav[3:]), dim=-1)
+    if mt.stiff_qadr.numel():
+        dq = state.qpos[:, mt.stiff_qadr] - mt.stiff_ref
+        pot = pot + torch.sum(0.5 * mt.stiff_k * dq * dq, dim=-1)
+    qv = state.qvel[..., None]
+    kin = 0.5 * (qv.transpose(-1, -2) @ mass_mat @ qv)[..., 0, 0]
+    return pot, kin
 
 
 def forward(model: PhysicsModel, mm: MutableModel,

@@ -2,8 +2,12 @@
 PyTorch port (tests/test_torch_*.py): both packages get the same inputs,
 made with numpy from a seed, and random draws are taken from the JAX side.
 """
+import dataclasses
+
 import numpy as np
 import torch
+
+from learning_to_adapt_torch.physics import engine as port_engine
 
 F32_STEP_TOL = dict(rtol=1e-4, atol=1e-4)  # one f32 step, other op order
 F64_STEP_TOL = dict(rtol=1e-10, atol=1e-10)
@@ -25,3 +29,39 @@ def jax_params_numpy(params):
 
 def t(a, dtype=torch.float32):
     return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+def capture_solves(fn):
+    """(fn(), the arguments of every engine.jacobi_solve call it made)."""
+    captured = []
+    solve = port_engine.jacobi_solve
+
+    def capture(*args):
+        captured.append(args)
+        return solve(*args)
+    port_engine.jacobi_solve = capture
+    try:
+        out = fn()
+    finally:
+        port_engine.jacobi_solve = solve
+    return out, captured
+
+
+def assert_models_equal(pm, jm, name):
+    """Every PhysicsModel field of the port's model equals the JAX
+    package's: floats to rtol 1e-9 (the compile-time invweights come from
+    each package's own engine), the rest exactly."""
+    for f in dataclasses.fields(jm):
+        a, b = getattr(pm, f.name), getattr(jm, f.name)
+        msg = f'{name}: {f.name}'
+        if f.name == 'pair_groups':
+            assert [k for k, _ in a] == [k for k, _ in b], msg
+            for (_, pa), (_, pb) in zip(a, b):
+                np.testing.assert_array_equal(pa, pb, err_msg=msg)
+        elif isinstance(b, np.ndarray) and b.dtype.kind == 'f':
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
+                                       err_msg=msg)
+        elif isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=msg)
+        else:
+            assert a == b, msg

@@ -1,8 +1,9 @@
-"""The port's entry points on the terrain, blocks and arm envs, on the CPU
-at test size, chosen through --env as a user chooses them: run_grbal on
-each new env (progress.csv with the header of the JAX run on that env,
-letter for letter), run_mb_mpc and run_rebal on the arm, the
-task-distribution flags reaching the env, and the Ant's refusal."""
+"""The port's entry points on the terrain, blocks, arm and Ant envs, on
+the CPU at test size, chosen through --env as a user chooses them:
+run_grbal on each of these envs (progress.csv with the header of the JAX
+run on that env, letter for letter), run_mb_mpc and run_rebal on the arm
+and the Ant, the task-distribution flags reaching the env, and an unknown
+--env refused."""
 import math
 import os
 import pickle
@@ -115,11 +116,39 @@ def test_mb_mpc_and_rebal_on_the_arm(entry, header, loss_keys, tmp_path,
     assert type(env) is port_envs.Arm7DofEnv and env.task == 'mass'
 
 
+@pytest.mark.parametrize('entry,header,loss_keys', [
+    (run_grbal, 'grbal_ant_cripple_tpu_r4.csv', ('Pre-Loss', 'Post-Loss')),
+    (run_mb_mpc, 'mb_mpc_ant_cripple_tpu_r4.csv', ('TrainLoss', 'ValidLoss')),
+    (run_rebal, 'rebal_ant_cripple_tpu_r4_seed1.csv', ('TrainLoss',)),
+], ids=['grbal', 'mb_mpc', 'rebal'])
+def test_entry_points_on_the_ant(entry, header, loss_keys, tmp_path,
+                                 monkeypatch):
+    """Two iterations of each algorithm through --env AntEnv --task cripple
+    --cripple_set 3 (the meta-test holdout leg): the JAX Ant run's header,
+    finite losses and returns, a params.pkl that re-creates the Ant with
+    its leg set, and only leg 3 crippled in the sampled episodes."""
+    lines, snap, trainer = _run(
+        entry, ['--env', 'AntEnv', '--task', 'cripple', '--cripple_set', '3'],
+        tmp_path, monkeypatch)
+    _check(lines, _header(header), loss_keys)
+    env = snap['env'].wrapped_env
+    assert type(env) is port_envs.AntEnv and env.task == 'cripple'
+    assert env.cripple_set == (3,) and env.obs_dim == 41
+    assert trainer.sampler.total_timesteps_sampled == 2 * 2 * 20
+    state = trainer.env.reset(4, 1, torch.Generator().manual_seed(0))
+    assert (state.task['cripple_mask'][:, :2] == 0).all()
+    assert (state.task['cripple_mask'][:, 2:] == 1).all()
+
+
 @pytest.mark.parametrize('entry', [run_grbal, run_mb_mpc, run_rebal])
 def test_ant_is_refused_naming_its_slice(entry):
-    args = entry.parse_args(['--env', 'AntEnv', '--task', 'cripple'])
-    with pytest.raises(NotImplementedError, match='Ant slice'):
-        entry.config_from_args(args)
+    """Named from when --env AntEnv was refused: it now gives AntEnv, and
+    an unknown name is refused naming the envs the port has."""
+    cfg = entry.config_from_args(entry.parse_args(
+        ['--env', 'AntEnv', '--task', 'cripple']))
+    assert cfg['env'] is port_envs.AntEnv and cfg['task'] == 'cripple'
+    with pytest.raises(ValueError, match='AntEnv'):
+        entry.config_from_args(entry.parse_args(['--env', 'Humanoid']))
 
 
 def test_new_envs_default_to_cuda_and_never_fall_back(tmp_path, monkeypatch):
@@ -127,7 +156,8 @@ def test_new_envs_default_to_cuda_and_never_fall_back(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip('a card is present: the default device is usable')
     for cls in (port_envs.HalfCheetahHFieldEnv,
-                port_envs.HalfCheetahBlocksEnv, port_envs.Arm7DofEnv):
+                port_envs.HalfCheetahBlocksEnv, port_envs.Arm7DofEnv,
+                port_envs.AntEnv):
         with pytest.raises(RuntimeError, match='cuda'):
             cls()
     cfg = run_grbal.config_from_args(run_grbal.parse_args(

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import F32_STEP_TOL, t
+from _torch_parity import F32_STEP_TOL, capture_solves, t
 from learning_to_adapt_torch import envs as port_envs
 from learning_to_adapt_torch.physics import engine as port_engine
 from learning_to_adapt_torch.physics import spec as port_spec
@@ -189,17 +189,7 @@ def test_step_matches_jax(cls, task):
 
     env = _port_env(cls, TASK[cls])
     state = _port_state(env, q32, v32, js)
-    captured = []
-    solve = port_engine.jacobi_solve
-
-    def capture(*args):
-        captured.append(args)
-        return solve(*args)
-    port_engine.jacobi_solve = capture
-    try:
-        out = env.step(state, t(act))
-    finally:
-        port_engine.jacobi_solve = solve
+    out, captured = capture_solves(lambda: env.step(state, t(act)))
     A, b = captured[0][:2]
     nlim = 2 * int(np.sum(env.model.jnt_limited))
     assert int((b[:, nlim:] != 0).sum()) > 0, 'no active contact row'

@@ -74,6 +74,21 @@ def test_fused_mlp_kernel_mb_mpc_shape(dev):
                                **MLP_TOL)
 
 
+@pytest.mark.parametrize('shared', [False, True])
+def test_fused_mlp_kernel_ant_widths(dev, shared):
+    """GrBAL's planner launch on the Ant: 5 envs x 500 candidates,
+    49->512x3->41 (obs 41 + act 8), packed per env or one shared set."""
+    x, ws, bs = _mlp(dev, 5, 500, (49, 512, 512, 512, 41), seed=8,
+                     shared=shared)
+    packed = fused_mlp.pack_weights(ws, bs)
+    before = fused_mlp.fused_mlp_forward.launches
+    out = fused_mlp.fused_mlp_forward(x, packed)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp_forward.launches == before + 1
+    torch.testing.assert_close(out, fused_mlp.fused_mlp_plain(x, ws, bs),
+                               **MLP_TOL)
+
+
 def test_fused_mlp_kernel_ensemble_grouping(dev):
     """An ensemble through the kernel as MLPDynamicsModel.predict_fn runs
     it: the member axis as the group axis, every row repeated per member
@@ -179,6 +194,44 @@ def _special_system(dev, case):
         aii_inv = 1.0 / torch.clamp(torch.diagonal(a, dim1=-2, dim2=-1),
                                     min=1e-12)
     return a, b, aii_inv, omega
+
+
+def test_jacobi_kernel_on_ant_contact_systems(dev):
+    """One RK4 physics step of 5 Ants after 30 random-action steps: four
+    tier-kernel launches on 116-row contact systems, each held against the
+    plain version on the same inputs."""
+    from learning_to_adapt_torch import envs
+    from learning_to_adapt_torch.physics import engine
+    env = envs.normalize(envs.AntEnv(task='cripple', reset_every_episode=True,
+                                     device=dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = env.reset(5, 1, gen)
+
+    def random_step(state):
+        act = 2 * torch.rand((5, 8), generator=gen, device=dev) - 1
+        return env.step(state, act)[0]
+    for _ in range(30):
+        state = random_step(state)
+    captured, solve = [], engine.jacobi_solve
+
+    def capture(*args):
+        out = solve(*args)
+        captured.append((args, out))
+        return out
+    engine.jacobi_solve = capture
+    try:
+        before = jacobi.jacobi_solve.launches
+        random_step(state)
+        torch.cuda.synchronize()
+    finally:
+        engine.jacobi_solve = solve
+    assert jacobi.jacobi_solve.launches == before + 4 == before + len(captured)
+    for (A, b, aii_inv, omega, n_sweeps), out in captured:
+        assert A.shape == (5, 116, 116) and n_sweeps == 60
+        assert (b != 0).any()
+        torch.testing.assert_close(
+            out, jacobi.jacobi_solve_plain(A, b, aii_inv, omega, n_sweeps),
+            **JACOBI_TOL)
 
 
 @pytest.mark.parametrize('case', ['omega_one', 'b_nonnegative', 'zero_row'])

@@ -1,11 +1,10 @@
 """Parity of the port's physics (learning_to_adapt_torch.physics, ops.jacobi)
-with the JAX package: the compiled models of the four Euler-integrated
-envs, batched engine.step and engine.forward at float64 and float32 (on
-HalfCheetah here; the terrain, blocks and arm models in
-tests/test_torch_envs_euler.py), the plane-capsule collider (every collider
-in tests/test_torch_collision.py) and the projected-Jacobi solve's plain
-version, its launch tiers and its cluster path above 224 rows."""
-import dataclasses
+with the JAX package: the compiled models of the five envs, batched
+engine.step and engine.forward at float64 and float32 (on HalfCheetah
+here; the terrain, blocks and arm models in tests/test_torch_envs_euler.py,
+the Ant in tests/test_torch_ant.py), the plane-capsule collider (every
+collider in tests/test_torch_collision.py) and the projected-Jacobi solve's
+plain version, its launch tiers and its cluster path above 224 rows."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import F32_STEP_TOL, F64_STEP_TOL, contact_states, t
+from _torch_parity import (
+    F32_STEP_TOL, F64_STEP_TOL, assert_models_equal, capture_solves,
+    contact_states, t)
 from learning_to_adapt_torch.envs.model_defs import get_model as port_model
 from learning_to_adapt_torch.ops import jacobi as port_jacobi
 from learning_to_adapt_torch.physics import collision as port_coll
@@ -40,32 +41,18 @@ DTYPES = {
 }
 
 
-#: the models of the Euler-integrated envs
+#: the models of the five envs
 MODELS = ('half_cheetah', 'half_cheetah_hfield', 'half_cheetah_blocks',
-          'arm_7dof')
+          'ant', 'arm_7dof')
 
 
 def test_compiled_model_fields_match():
     """Every PhysicsModel field of get_model(name) for each of MODELS
     (box masses and inertias, the hfield size, the block slide joints, the
-    arm's geoms), including the compile-time invweights computed by each
-    package's own engine."""
+    Ant's free root and RK4, the arm's geoms), including the compile-time
+    invweights computed by each package's own engine."""
     for name in MODELS:
-        pm, jm = port_model(name), jax_model(name)
-        for f in dataclasses.fields(jm):
-            a, b = getattr(pm, f.name), getattr(jm, f.name)
-            msg = f'{name}: {f.name}'
-            if f.name == 'pair_groups':
-                assert [k for k, _ in a] == [k for k, _ in b], msg
-                for (_, pa), (_, pb) in zip(a, b):
-                    np.testing.assert_array_equal(pa, pb, err_msg=msg)
-            elif isinstance(b, np.ndarray) and b.dtype.kind == 'f':
-                np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
-                                           err_msg=msg)
-            elif isinstance(b, np.ndarray):
-                np.testing.assert_array_equal(a, b, err_msg=msg)
-            else:
-                assert a == b, msg
+        assert_models_equal(port_model(name), jax_model(name), name)
 
 
 def _jax_traj(jm, dt, x64, qpos, qvel, ctrls):
@@ -128,19 +115,9 @@ def test_states_exercise_contacts_and_limits():
     mm = port_spec.batched_mutable(port_spec.default_mutable(pm), N_ENVS,
                                    'cpu', torch.float32)
     st = port_engine.PhysicsState(t(qpos), t(qvel))
-    captured = []
-    solve = port_engine.jacobi_solve
-
-    def capture(A, b, aii_inv, omega, n_sweeps):
-        captured.append((A, b, n_sweeps))
-        return solve(A, b, aii_inv, omega, n_sweeps)
-
-    port_engine.jacobi_solve = capture
-    try:
-        port_engine.step(pm, mm, st, torch.zeros((N_ENVS, pm.nu)))
-    finally:
-        port_engine.jacobi_solve = solve
-    (A, b, n_sweeps), = captured
+    _, captured = capture_solves(lambda: port_engine.step(
+        pm, mm, st, torch.zeros((N_ENVS, pm.nu))))
+    (A, b, _, _, n_sweeps), = captured
     assert A.shape == (N_ENVS, 76, 76) and n_sweeps == 60
     assert int((b[:, 12:] != 0).sum()) > 0   # contact rows after 12 limits
 

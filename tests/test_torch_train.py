@@ -568,8 +568,10 @@ def test_entry_point_config_and_flags_match_run_script():
             cfg['cripple_set'], cfg['exp_name'], cfg['profile']) == (
         'cripple', 3, 2, True, (1, 2), 'x', True)
     assert port_run.config['n_itr'] == 50   # the module's dict is untouched
-    with pytest.raises(NotImplementedError, match='item 8'):
-        port_run.config_from_args(port_run.parse_args(['--env', 'AntEnv']))
+    ant = port_run.config_from_args(port_run.parse_args(['--env', 'AntEnv']))
+    assert ant['env'] is port_envs.AntEnv
+    with pytest.raises(ValueError, match='HalfCheetahEnv'):
+        port_run.config_from_args(port_run.parse_args(['--env', 'Humanoid']))
 
 
 def test_entry_point_defaults_to_cuda_and_never_falls_back(tmp_path,
