@@ -107,8 +107,31 @@ Phases, each of which raises (exit code != 0) on failure:
      (header of results/mb_mpc_ant_cripple_tpu_r4.csv; 4 x 100 Jacobi
      launches in its random call);
  15. print the card line again, one JSON line describing every kernel
-     (with its launches on each algorithm's and env's path), then the
-     contract line {"ok": true, "device": {...}} last.
+     (with its launches on each algorithm's and env's path, and on the
+     meta-test's), then the contract line {"ok": true, "device": {...}}
+     last, after phase 16;
+ 16. the meta-test protocol and host tools, on the snapshots phases 6, 8,
+     9 and 14 wrote (copied from their temporary directories): (a)
+     meta_test.main on the Ant GrBAL snapshot (trained on legs 0, 1, 2)
+     with --eval_set 3 --seeds 0 --num_rollouts 5 --max_path_length 100,
+     from a temporary working directory: the JSON has the keys of
+     results/meta_test_ant_leg3_grbal_s0.json plus ablate_warmup and
+     set_kind, both modes are finite, the counts (set to 0 just before the
+     run) show per mode 1000 fused-MLP launches, 100 packs and 400 Jacobi
+     launches, and rollout.adapt runs in the adapted mode only (82 steps);
+     the gap is printed; (b) meta_test.main on the ReBAL snapshot (modes
+     rebal, rebal_hidden_zero, rebal_hidden_frozen: no MLP launch, 100
+     Jacobi launches each, three different returns) and on the MB-MPC
+     snapshot (mode mb_mpc: 2000 MLP launches, 1 pack); (c) sim_policy on
+     the HalfCheetah GrBAL snapshot (2 x 100 steps; replay.npz carries the
+     JAX replay's keys), then nominal replays (task None) of the
+     HalfCheetah and Ant GrBAL snapshots held step by step against the
+     float64 C++ oracle over 99 steps: the worst one-step qpos deviation is
+     printed and must stay below 1e-2; (d) the vectorized executor on
+     HalfCheetah cripple, 5 envs x 120 random-action steps with
+     max_path_length 50: every env auto-resets at steps 50 and 100 and
+     its episode counter reads 2; (e) entry()'s fn(*example_args) once:
+     exactly 1 fused-MLP launch, held against the plain version.
 
 Profiler windows are read from their raw kineto events (Trace): building
 the profiler's FunctionEvents takes tens of seconds a window.
@@ -120,6 +143,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1025,11 +1049,13 @@ def check_trainer_launches(policy_itr, record, total, resume_record,
                                  f'fit: {tot} != {summed}')
 
 
-def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr):
+def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr,
+                  keep):
     """The training loop through a port entry point in a temporary
     directory (cfg: TRAIN_ITR iterations), then a resume to one more.
     policy_itr(solves) gives the launches of one policy sampling call, for
-    `solves` Jacobi launches an env step.
+    `solves` Jacobi launches an env step. The experiment directory is
+    copied to `keep` for the meta-test phase.
     Returns (per policy iteration launches, whole-run launches, the
     trainer)."""
     import math
@@ -1054,6 +1080,7 @@ def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr):
                 resume_record)
             resume_s = time.time() - t0
             _, resumed_rows = read_progress(exp_dir)
+            shutil.copytree(exp_dir, keep)
         finally:
             os.chdir(cwd)
 
@@ -1098,7 +1125,7 @@ def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr):
     return per_itr, total, resumed
 
 
-def grbal_trainer_phase(dev, card):
+def grbal_trainer_phase(dev, card, keep):
     """Phase 6: the GrBAL meta-training loop through run_grbal, 10
     fused-MLP launches and 1 pack per policy env step."""
     from learning_to_adapt_torch import run_grbal
@@ -1109,10 +1136,11 @@ def grbal_trainer_phase(dev, card):
         dev, card, run_grbal.ENTRY, cfg, HEADER_CSV,
         ('Pre-Loss', 'Post-Loss'),
         lambda solves: dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN,
-                            pack=PATH_LEN, jacobi_solve=solves * PATH_LEN))
+                            pack=PATH_LEN, jacobi_solve=solves * PATH_LEN),
+        keep)
 
 
-def mb_mpc_trainer_phase(dev, card):
+def mb_mpc_trainer_phase(dev, card, keep):
     """Phase 8: MB-MPC through run_mb_mpc at its full config (100-step
     paths are canonical): per policy sampling call 20 fused-MLP launches a
     step over 10 x 2000 rows, one pack for the whole call; then a policy
@@ -1126,12 +1154,12 @@ def mb_mpc_trainer_phase(dev, card):
         dev, card, run_mb_mpc.ENTRY, cfg, MB_HEADER_CSV,
         ('TrainLoss', 'ValidLoss'),
         lambda solves: dict(NO_LAUNCH, fused_mlp=MB_HORIZON * t_len,
-                            pack=1, jacobi_solve=solves * t_len))
+                            pack=1, jacobi_solve=solves * t_len), keep)
     sampling_profile(trainer.sampler, 'MB-MPC', card)
     return per_itr, total, trainer
 
 
-def rebal_trainer_phase(dev, card):
+def rebal_trainer_phase(dev, card, keep):
     """Phase 9: ReBAL through run_rebal, paths cut 1000 -> 100 (one
     100-step TBPTT chunk): no fused-MLP launch (the LSTM planner runs f32
     cell equations); then a policy sampling call watched for host
@@ -1142,7 +1170,7 @@ def rebal_trainer_phase(dev, card):
                max_path_length=PATH_LEN, resume=False, profile=False)
     per_itr, total, trainer = trainer_phase(
         dev, card, run_rebal.ENTRY, cfg, RB_HEADER_CSV, ('TrainLoss',),
-        lambda solves: dict(NO_LAUNCH, jacobi_solve=solves * PATH_LEN))
+        lambda solves: dict(NO_LAUNCH, jacobi_solve=solves * PATH_LEN), keep)
     sampling_profile(trainer.sampler, 'ReBAL', card)
     return per_itr, total, trainer
 
@@ -1193,11 +1221,12 @@ def solves_per_env_step(env):
 
 
 def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key,
-                  module='run_grbal', n_itr=NEW_ENV_ITR):
+                  module='run_grbal', n_itr=NEW_ENV_ITR, keep=None):
     """Phase 13, one env: an entry point (run_grbal, or run_mb_mpc) from its
     command line (--env, --task) at full width, paths of 100 steps, n_itr
-    iterations (the first one random), in a temporary directory. Returns
-    (launches of a policy sampling call, the trainer)."""
+    iterations (the first one random), in a temporary directory, copied to
+    `keep` when given. Returns (launches of a policy sampling call, the
+    trainer)."""
     import importlib
     import math
     import pickle
@@ -1223,6 +1252,8 @@ def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key,
             header, rows = read_progress(exp_dir)
             with open(os.path.join(exp_dir, 'params.pkl'), 'rb') as f:
                 snap = pickle.load(f)
+            if keep:
+                shutil.copytree(exp_dir, keep)
         finally:
             os.chdir(cwd)
     with open(os.path.join(REPO, 'results', header_name)) as f:
@@ -1468,6 +1499,230 @@ def rebal_fit_phase(model, card):
                     'data drawn for timing only)', card)
 
 
+#: the keys of the JAX package's replay.npz (experiment_utils/sim_policy.py)
+REPLAY_KEYS = ('actions', 'dones', 'next_observations', 'observations',
+               'qpos', 'qvel', 'rewards')
+#: the keys of a JAX GrBAL meta-test file
+#: (results/meta_test_ant_leg3_grbal_s0.json), with the ablate_warmup and
+#: set_kind of the newer files after max_path_length
+META_TEST_JSON = os.path.join(REPO, 'results',
+                              'meta_test_ant_leg3_grbal_s0.json')
+META_TEST_FLAGS = ['--seeds', '0', '--num_rollouts', str(N_ENVS),
+                   '--max_path_length', str(PATH_LEN)]
+EXECUTOR_ENVS, EXECUTOR_T, EXECUTOR_STEPS = 5, 50, 120
+
+
+@contextlib.contextmanager
+def per_rollout(record):
+    """Appends, for every sim_policy.rollout call made through meta_test,
+    (launches made inside it, rollout.adapt calls inside it) to record."""
+    from learning_to_adapt_torch import meta_test
+    from learning_to_adapt_torch.models import MetaMLPDynamicsModel
+    rollout, adapt_fn = meta_test.rollout, MetaMLPDynamicsModel.adapt_fn
+    adapts = [0]
+
+    def counted_adapt(self, *args):
+        adapts[0] += 1
+        return adapt_fn(self, *args)
+
+    def counted(*args, **kwargs):
+        before, a0 = counters(), adapts[0]
+        out = rollout(*args, **kwargs)
+        after = counters()
+        record.append(({k: after[k] - before[k] for k in after},
+                       adapts[0] - a0))
+        return out
+    meta_test.rollout = counted
+    MetaMLPDynamicsModel.adapt_fn = counted_adapt
+    try:
+        yield record
+    finally:
+        meta_test.rollout = rollout
+        MetaMLPDynamicsModel.adapt_fn = adapt_fn
+
+
+def run_meta_test(exp_dir, flags, dev):
+    """meta_test.main on exp_dir from a temporary working directory, the
+    counts set to 0 just before it. Returns (the written results,
+    per-mode (launches, adapt calls), whole-run launches)."""
+    from learning_to_adapt_torch import meta_test
+    cwd = os.getcwd()
+    record = []
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            zero_counters()
+            with per_rollout(record):
+                meta_test.main([exp_dir, '--tag', 'chip_smoke', '--device',
+                                str(dev)] + META_TEST_FLAGS + flags)
+            total = counters()
+            with open(os.path.join('results',
+                                   'meta_test_chip_smoke.json')) as f:
+                results = json.load(f)
+        finally:
+            os.chdir(cwd)
+    summed = {k: sum(c[k] for c, _ in record) for k in total}
+    if total != summed:
+        raise AssertionError(f'meta-test launches outside its rollouts: '
+                             f'{total} != {summed}')
+    return results, record, total
+
+
+def check_modes(what, results, record, modes, want, adapts):
+    """Every mode finite with N_ENVS returns and one rollout each, made
+    with launches `want` and adapts[i] rollout.adapt calls."""
+    import math
+    for mode, (counts, n_adapt), n_want in zip(modes, record, adapts):
+        r = results[mode]
+        if not (math.isfinite(r['mean']) and r['n'] == N_ENVS):
+            raise AssertionError(f'{what} {mode}: {r}')
+        if counts != want or n_adapt != n_want:
+            raise AssertionError(f'{what} {mode}: launches {counts} != '
+                                 f'{want}, or {n_adapt} rollout.adapt '
+                                 f'calls != {n_want}')
+    if len(record) != len(modes):
+        raise AssertionError(f'{what}: {len(record)} rollouts for modes '
+                             f'{modes}')
+    log(f'{what}: ' + ', '.join(
+        f'{m} {results[m]["mean"]:.2f} +- {results[m]["sem"]:.2f}'
+        for m in modes) + f'; launches per mode {json.dumps(want)}; '
+        f'rollout.adapt calls per mode {adapts}')
+
+
+def meta_test_phase(dev, card, snap):
+    """Phase 16: the meta-test protocol, replay and host tools on the
+    trainers' snapshots (snap: name -> experiment directory). Returns the
+    launches of the GrBAL held-out meta-test."""
+    import numpy as np
+    import torch
+    from learning_to_adapt_torch import entry, sim_policy
+    from learning_to_adapt_torch.envs import AntEnv, HalfCheetahEnv, normalize
+    from learning_to_adapt_torch.ops import fused_mlp
+    from learning_to_adapt_torch.samplers.vectorized_env_executor import (
+        IterativeEnvExecutor)
+
+    # (a) GrBAL trained on the Ant's legs (0, 1, 2), on the held-out leg 3
+    t0 = time.time()
+    results, record, grbal_total = run_meta_test(
+        snap['grbal_ant'], ['--eval_set', '3'], dev)
+    with open(META_TEST_JSON) as f:
+        jax_doc = json.load(f)
+    keys = list(jax_doc)
+    i = keys.index('max_path_length') + 1
+    keys[i:i] = ['ablate_warmup', 'set_kind']
+    if list(results) != keys or any(
+            list(results[m]) != list(jax_doc[m])
+            for m in ('adapted', 'pre-update', 'gap')):
+        raise AssertionError(f'meta-test keys {list(results)} != {keys}')
+    if (results['train_set'], results['eval_set'], results['set_kind']) != (
+            [0, 1, 2], [3], 'discrete'):
+        raise AssertionError(f'held-out sets {results["train_set"]} -> '
+                             f'{results["eval_set"]}')
+    grbal_want = dict(
+        NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
+        jacobi_solve=solves_per_env_step(AntEnv(device=dev)) * PATH_LEN)
+    # adaptation starts at step a_bs + 2 (rollout.py's gate t > a_bs + 1)
+    check_modes('GrBAL Ant leg 3 (held out)', results, record,
+                ('adapted', 'pre-update'), grbal_want,
+                [PATH_LEN - ADAPT_BATCH - 2, 0])
+    log(f'GrBAL held-out gap (adapted - pre-update, {N_ENVS} rollouts x '
+        f'{PATH_LEN} steps, seed 0, 2-iteration snapshot): '
+        f'{results["gap"]["mean"]:+.2f} +- {results["gap"]["sem"]:.2f} '
+        f'in {time.time() - t0:.1f} s on {card}')
+
+    # (b) ReBAL and MB-MPC on their own task distribution
+    t0 = time.time()
+    results, record, _ = run_meta_test(snap['rebal'], [], dev)
+    modes = ('rebal', 'rebal_hidden_zero', 'rebal_hidden_frozen')
+    cheetah = solves_per_env_step(HalfCheetahEnv(device=dev)) * PATH_LEN
+    check_modes('ReBAL', results, record, modes,
+                dict(NO_LAUNCH, jacobi_solve=cheetah), [0, 0, 0])
+    means = [results[m]['mean'] for m in modes]
+    if len(set(means)) != 3:
+        raise AssertionError(f'ReBAL modes gave equal returns {means}')
+    results, record, _ = run_meta_test(snap['mb_mpc'], [], dev)
+    check_modes('MB-MPC', results, record, ('mb_mpc',),
+                dict(NO_LAUNCH, fused_mlp=MB_HORIZON * PATH_LEN, pack=1,
+                     jacobi_solve=cheetah), [0])
+    log(f'ReBAL and MB-MPC meta-tests: {time.time() - t0:.1f} s')
+
+    # (c) replay, and the trajectory made on the card against the float64
+    # C++ oracle under nominal dynamics
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, 'replay.npz')
+        sim_policy.main([snap['grbal'], '--max_path_length', str(PATH_LEN),
+                         '--num_rollouts', '2', '--device', str(dev),
+                         '--out', out, '--check-native'])
+        with np.load(out) as z:
+            replay = {k: z[k] for k in z.files}
+    if tuple(sorted(replay)) != REPLAY_KEYS or any(
+            v.shape[:2] != (2, PATH_LEN) or not np.isfinite(v).all()
+            for v in replay.values()):
+        raise AssertionError(f'replay.npz: {sorted(replay)}, shapes '
+                             f'{[v.shape for v in replay.values()]}')
+    deviation = {}
+    for name, cls in (('grbal', HalfCheetahEnv), ('grbal_ant', AntEnv)):
+        env, model, policy, _, a_bs = sim_policy.load_experiment(
+            snap[name], env_override=normalize(cls(task=None, device=dev)),
+            device=dev)
+        paths = sim_policy.rollout(env, policy, model,
+                                   max_path_length=PATH_LEN, num_rollouts=1,
+                                   adapt_batch_size=a_bs)
+        deviation[cls.__name__] = sim_policy.check_native(
+            env, paths, PATH_LEN - 1)
+    log(f'oracle: worst one-step qpos deviation over {PATH_LEN - 1} steps '
+        f'of a GrBAL replay made on {card} (float32) from the float64 C++ '
+        f'physics: {json.dumps(deviation)}, bound {sim_policy.NATIVE_TOL}; '
+        f'{time.time() - t0:.1f} s')
+    if not all(0.0 <= d < sim_policy.NATIVE_TOL
+               for d in deviation.values()):
+        raise AssertionError(f'oracle deviation {deviation}')
+
+    # (d) the vectorized executor: auto-reset at max_path_length
+    t0 = time.time()
+    env = normalize(HalfCheetahEnv(task='cripple', reset_every_episode=True,
+                                   device=dev))
+    ex = IterativeEnvExecutor(env, EXECUTOR_ENVS, EXECUTOR_T, seed=0)
+    obs = ex.reset()
+    rng = np.random.RandomState(0)
+    resets = []
+    for i in range(EXECUTOR_STEPS):
+        obs, rew, dones, _ = ex.step(rng.uniform(
+            -1, 1, (EXECUTOR_ENVS, env.act_dim)))
+        if not (np.isfinite(obs).all() and np.isfinite(rew).all()):
+            raise AssertionError(f'executor step {i + 1}: non-finite')
+        if dones.any():
+            resets.append((i + 1, int(dones.sum())))
+    want = [(EXECUTOR_T, EXECUTOR_ENVS), (2 * EXECUTOR_T, EXECUTOR_ENVS)]
+    if resets != want or ex._episode.tolist() != [2] * EXECUTOR_ENVS:
+        raise AssertionError(f'executor resets {resets} != {want}, '
+                             f'episodes {ex._episode.tolist()}')
+    log(f'executor: {EXECUTOR_ENVS} envs x {EXECUTOR_STEPS} steps, resets '
+        f'at steps {[s for s, _ in resets]}, episodes '
+        f'{ex._episode.tolist()}, {time.time() - t0:.1f} s')
+
+    # (e) entry(): one fused-MLP launch, held against the plain version
+    fn, args = entry.entry(device=dev)
+    zero_counters()
+    got = fn(*args)
+    launched = counters()
+    params, norm, obs, act = args
+    x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
+    plain = obs + norm.denorm_delta(fused_mlp.fused_mlp_plain(
+        x[None], [w[None] for w in params['w']],
+        [b[None] for b in params['b']])[0])
+    err = (got - plain).abs().max().item()
+    log(f'entry(): fn(*example_args) {tuple(got.shape)}, launches '
+        f'{json.dumps(launched)}, max |kernel - plain| {err:.3e} '
+        f'(rtol {MLP_TOL["rtol"]}, atol {MLP_TOL["atol"]})')
+    if launched != dict(NO_LAUNCH, fused_mlp=1, pack=1):
+        raise AssertionError(f'entry(): launches {launched}')
+    if not torch.allclose(got, plain, **MLP_TOL):
+        raise AssertionError(f'entry(): kernel vs plain {err}')
+    return grbal_total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1504,7 +1759,12 @@ def main():
     profile_policy_steps(dev, sampler)
     check_host_syncs(dev, sampler)
     stamp('GrBAL sampling')
-    per_policy_itr, trainer_total, trainer = grbal_trainer_phase(dev, card)
+    # the trainers' snapshots, for the meta-test phase; removed on exit
+    snaps = tempfile.TemporaryDirectory(prefix='chip_smoke_snapshots_')
+    snap = {k: os.path.join(snaps.name, k) for k in
+            ('grbal', 'mb_mpc', 'rebal', 'grbal_ant')}
+    per_policy_itr, trainer_total, trainer = grbal_trainer_phase(
+        dev, card, snap['grbal'])
     for name in launches:
         if launches[name] != per_policy_itr[name]:
             raise AssertionError(f'{name}: sampling phase {launches[name]} '
@@ -1512,9 +1772,11 @@ def main():
                                  f'{per_policy_itr[name]}')
     fit_phase(trainer.dynamics_model, card)
     stamp('GrBAL trainer and fit')
-    mb_itr, mb_total, mb_trainer = mb_mpc_trainer_phase(dev, card)
+    mb_itr, mb_total, mb_trainer = mb_mpc_trainer_phase(dev, card,
+                                                        snap['mb_mpc'])
     stamp('MB-MPC trainer')
-    rb_itr, rb_total, rb_trainer = rebal_trainer_phase(dev, card)
+    rb_itr, rb_total, rb_trainer = rebal_trainer_phase(dev, card,
+                                                       snap['rebal'])
     stamp('ReBAL trainer')
     mb_mpc_fit_phase(mb_trainer.dynamics_model, card)
     rebal_fit_phase(rb_trainer.dynamics_model, card)
@@ -1522,7 +1784,8 @@ def main():
     env_itr = {}
     for cls_name, task, header, jacobi_key in NEW_ENVS:
         env_itr[cls_name], env_trainer = new_env_phase(
-            dev, card, cls_name, task, header, jacobi_key)
+            dev, card, cls_name, task, header, jacobi_key,
+            keep=snap['grbal_ant'] if cls_name == 'AntEnv' else None)
         stamp(f'GrBAL on {cls_name}')
         if cls_name in ('HalfCheetahBlocksEnv', 'AntEnv'):
             what = {'HalfCheetahBlocksEnv': 'blocks', 'AntEnv': 'Ant'}
@@ -1533,6 +1796,9 @@ def main():
                                      ANT_MB_HEADER, 'jacobi_solve',
                                      module='run_mb_mpc', n_itr=1)
     stamp('MB-MPC on AntEnv')
+    meta_test_launches = meta_test_phase(dev, card, snap)
+    snaps.cleanup()
+    stamp('meta-test, replay, executor and entry()')
     for k in kernels:
         # the cluster kernel's main path is the blocks env's
         k['launches'] = (env_itr['HalfCheetahBlocksEnv'][k['name']]
@@ -1549,6 +1815,7 @@ def main():
                               ('AntEnv', 'ant_launches')):
             k[key] = env_itr[cls_name][k['name']]
         k['ant_mb_mpc_random_launches'] = ant_mb_random[k['name']]
+        k['meta_test_launches'] = meta_test_launches[k['name']]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
             'library_device_ms', 'device_ms', 'floor_ms', 'ms_512',
@@ -1557,6 +1824,7 @@ def main():
             'mb_mpc_trainer_launches', 'rebal_trainer_launches',
             'hfield_launches', 'blocks_launches', 'arm_launches',
             'ant_launches', 'ant_mb_mpc_random_launches',
+            'meta_test_launches',
             'mb_mpc_max_abs_err', 'mb_mpc_ms', 'mb_mpc_device_ms',
             'mb_mpc_plain_ms', 'mb_mpc_bound_ms', 'mb_mpc_library_ms',
             'mb_mpc_library_device_ms', 'arm_max_abs_err', 'arm_ms',

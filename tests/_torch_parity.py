@@ -65,3 +65,47 @@ def assert_models_equal(pm, jm, name):
             np.testing.assert_array_equal(a, b, err_msg=msg)
         else:
             assert a == b, msg
+
+
+def tiny_snapshot(root, algo, exp_name='tiny', **kw):
+    """Trains a port snapshot at test size through its entry point on the
+    CPU (2 envs x 20 steps, 8 candidates x horizon 3, 2 iterations; GrBAL
+    with a (32, 32) meta-MLP and a 4-step window, MB-MPC with (32,), ReBAL
+    with an LSTM (16,)) in root/data/<algo>_torch/<exp_name>, and returns
+    that directory. kw overrides the config (e.g. cripple_set)."""
+    import importlib
+    import os
+    from learning_to_adapt_torch.utils import logging as port_log
+    module = importlib.import_module(f'learning_to_adapt_torch.run_{algo}')
+    size = {'grbal': dict(hidden_sizes_model=(32, 32), adapt_batch_size=4,
+                          meta_batch_size=4),
+            'mb_mpc': dict(hidden_sizes=(32,), batch_size=16),
+            'rebal': dict(hidden_sizes=(16,), batch_size=2,
+                          backprop_steps=10)}[algo]
+    cfg = dict(module.config, task='cripple', device='cpu', exp_name=exp_name,
+               n_itr=2, max_path_length=20, num_rollouts=2, n_candidates=8,
+               horizon=3, dynamic_model_epochs=2, **size)
+    cfg.update(kw)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        module.run_experiment(cfg)
+    finally:
+        port_log.Logger.CURRENT.close()
+        port_log.Logger.CURRENT = None
+        os.chdir(cwd)
+    return os.path.join(root, 'data', module.ENTRY.exp_name, exp_name)
+
+
+def recorded_rollouts(monkeypatch, module):
+    """Wraps module.rollout: returns the list that gains, for every call,
+    (the model's inner learning rate or None, the paths)."""
+    calls = []
+    inner = module.rollout
+
+    def rollout(env, policy, model, **kw):
+        paths = inner(env, policy, model, **kw)
+        calls.append((getattr(model, 'inner_learning_rate', None), paths))
+        return paths
+    monkeypatch.setattr(module, 'rollout', rollout)
+    return calls
