@@ -53,8 +53,9 @@ Phases, each of which raises (exit code != 0) on failure:
      in phase 5, failing on any wait once per train step or more;
   8. MB-MPC: run_mb_mpc.run_experiment at its full config (10 envs x 100
      steps, 2000 candidates x horizon 20, a (512,512) ReLU model, batch
-     128, 100 epochs a fit) with --task cripple, 3 iterations and a resume
-     to 4, checked as in phase 6 against results/mb_mpc_halfcheetah_tpu_r3.csv;
+     128, 100 epochs a fit) with --task cripple, 2 iterations (one random,
+     one policy; cut from 3 to keep the script near 600 s) and a resume
+     to 3, checked as in phase 6 against results/mb_mpc_halfcheetah_tpu_r3.csv;
      per policy iteration 20 fused-MLP launches a step over 20,000 rows
      (2000), one weight pack for the whole call, 1 Jacobi launch per
      physics step, none from the fit; then three policy sampling calls:
@@ -107,9 +108,9 @@ Phases, each of which raises (exit code != 0) on failure:
      (header of results/mb_mpc_ant_cripple_tpu_r4.csv; 4 x 100 Jacobi
      launches in its random call);
  15. print the card line again, one JSON line describing every kernel
-     (with its launches on each algorithm's and env's path, and on the
-     meta-test's), then the contract line {"ok": true, "device": {...}}
-     last, after phase 16;
+     (with its launches on each algorithm's and env's path, on the
+     meta-test's and on the multi-rank path's), then the contract line
+     {"ok": true, "device": {...}} last, after phase 17;
  16. the meta-test protocol and host tools, on the snapshots phases 6, 8,
      9 and 14 wrote (copied from their temporary directories): (a)
      meta_test.main on the Ant GrBAL snapshot (trained on legs 0, 1, 2)
@@ -131,7 +132,27 @@ Phases, each of which raises (exit code != 0) on failure:
      HalfCheetah cripple, 5 envs x 120 random-action steps with
      max_path_length 50: every env auto-resets at steps 50 and 100 and
      its episode counter reads 2; (e) entry()'s fn(*example_args) once:
-     exactly 1 fused-MLP launch, held against the plain version.
+     exactly 1 fused-MLP launch, held against the plain version;
+ 17. the multi-rank path (parallel/mesh.py): (a) run_grbal_multihost at
+     world size 1 over nccl on the card, at the width of phase 6 with
+     --task cripple, 2 iterations of 100-step paths: per policy iteration
+     1000 fused-MLP launches, 100 packs and 100 Jacobi launches, one
+     all_gather a sampling call and no collective in its steps, per fit
+     one broadcast and one all_reduce a meta-train step, a validation step
+     and an epoch; then one sharded fit epoch (64 + 16 steps on timing
+     data) watched for host waits as in phase 7; (b) two ranks sharing the
+     card over gloo (processes started by spawn) against one rank, GrBAL
+     at full width with 6 envs x 40 steps over the ranks: the random call's
+     paths to 1e-5, a 3-epoch sharded meta fit on the gathered paths bit
+     for bit (both ranks alike, as rank 0's unsharded twin on the same
+     paths, and as the 1-rank job's where the two jobs gathered the same
+     paths bit for bit), the policy call's candidate returns and paths
+     step for step up to the first step where the paths part, which passes
+     only as a near tie (after step 0, in one env, the best two returns
+     within twice the two jobs' return difference), and its reward sum to
+     rtol 2e-3 where nothing parts; 10 fused-MLP launches a policy step on
+     every rank; the phase's seconds and each job's policy env-steps/s are
+     printed.
 
 Profiler windows are read from their raw kineto events (Trace): building
 the profiler's FunctionEvents takes tens of seconds a window.
@@ -172,6 +193,7 @@ ADAPT_BATCH, INNER_LR = 16, 1e-3
 PATH_LEN = 100
 PROFILE_LEN = 30
 TRAIN_ITR = 3                         # one random, two policy iterations
+MB_TRAIN_ITR = 2                      # MB-MPC: one random, one policy
 FIT_PATHS, FIT_VALID_PATHS, FIT_T = 64, 16, 1000
 FIT_TIMED_EPOCHS = 3
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1026,13 +1048,13 @@ def read_progress(exp_dir):
 
 
 def check_trainer_launches(policy_itr, record, total, resume_record,
-                           resume_total):
+                           resume_total, n_itr):
     """Per call of the trainer runs: policy_itr's launches in every policy
     sampling call, only the Jacobi launches in the random one, nothing
     from the fit, and no launch outside those calls."""
     want = {'random': dict(policy_itr, fused_mlp=0, pack=0),
             'policy': policy_itr, 'fit': NO_LAUNCH}
-    labels = ['random', 'fit'] + ['policy', 'fit'] * (TRAIN_ITR - 1)
+    labels = ['random', 'fit'] + ['policy', 'fit'] * (n_itr - 1)
     for name, rec, tot, want_labels in (
             ('run', record, total, labels),
             ('resumed run', resume_record, resume_total, ['policy', 'fit'])):
@@ -1052,7 +1074,7 @@ def check_trainer_launches(policy_itr, record, total, resume_record,
 def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr,
                   keep):
     """The training loop through a port entry point in a temporary
-    directory (cfg: TRAIN_ITR iterations), then a resume to one more.
+    directory (cfg['n_itr'] iterations), then a resume to one more.
     policy_itr(solves) gives the launches of one policy sampling call, for
     `solves` Jacobi launches an env step. The experiment directory is
     copied to `keep` for the meta-test phase.
@@ -1061,6 +1083,7 @@ def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr,
     import math
     import pickle
     from learning_to_adapt_torch.envs import HalfCheetahEnv
+    n_itr = cfg['n_itr']
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -1076,7 +1099,7 @@ def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr,
             t0 = time.time()
             resume_record = []
             resumed, resume_total = run_trainer(
-                entry, dict(cfg, n_itr=TRAIN_ITR + 1, resume=True),
+                entry, dict(cfg, n_itr=n_itr + 1, resume=True),
                 resume_record)
             resume_s = time.time() - t0
             _, resumed_rows = read_progress(exp_dir)
@@ -1093,26 +1116,26 @@ def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr,
         for k in loss_keys + ('EnvTrajs-AverageReturn',):
             if not math.isfinite(float(r[k])):
                 raise AssertionError(f'itr {r["Itr"]}: {k} = {r[k]}')
-    if [int(r['Itr']) for r in rows] != list(range(TRAIN_ITR)):
+    if [int(r['Itr']) for r in rows] != list(range(n_itr)):
         raise AssertionError(f'itrs {[r["Itr"] for r in rows]}')
     env = snap['env'].wrapped_env
     if not (isinstance(env, HalfCheetahEnv) and env.task == 'cripple'
-            and snap['itr'] == TRAIN_ITR - 1):
+            and snap['itr'] == n_itr - 1):
         raise AssertionError('params.pkl did not re-create its env')
     # the logger, like the JAX package's, starts progress.csv anew on
     # configure: the resumed run's file holds its own iteration
-    if resumed.start_itr != TRAIN_ITR or [
-            int(r['Itr']) for r in resumed_rows] != [TRAIN_ITR]:
+    if resumed.start_itr != n_itr or [
+            int(r['Itr']) for r in resumed_rows] != [n_itr]:
         raise AssertionError(f'resume started at {resumed.start_itr}, '
                              f'wrote itrs {[r["Itr"] for r in resumed_rows]}')
 
     per_itr = policy_itr(solves_per_env_step(trainer.env.wrapped_env))
     check_trainer_launches(per_itr, record, total, resume_record,
-                           resume_total)
+                           resume_total, n_itr)
     log(f'trainer ({entry.module}.run_experiment, --task cripple, seed 0, '
         f'{cfg["num_rollouts"]} envs x {cfg["max_path_length"]} steps, '
-        f'{TRAIN_ITR} itrs, {cfg["dynamic_model_epochs"]} epochs max) on '
-        f'{card}: {run_s:.1f} s; resume to itr {TRAIN_ITR} {resume_s:.1f} s')
+        f'{n_itr} itrs, {cfg["dynamic_model_epochs"]} epochs max) on '
+        f'{card}: {run_s:.1f} s; resume to itr {n_itr} {resume_s:.1f} s')
     for r in rows + resumed_rows:
         losses = ', '.join(f'{k} {float(r[k]):.5f}' for k in loss_keys)
         log(f'  itr {r["Itr"]}: Time-EnvSampling '
@@ -1147,7 +1170,7 @@ def mb_mpc_trainer_phase(dev, card, keep):
     sampling call watched for host waits."""
     from learning_to_adapt_torch import run_mb_mpc
     cfg = dict(run_mb_mpc.config, task='cripple', seed=0, device=str(dev),
-               exp_name='chip_smoke', n_itr=TRAIN_ITR, resume=False,
+               exp_name='chip_smoke', n_itr=MB_TRAIN_ITR, resume=False,
                profile=False)
     t_len = cfg['max_path_length']
     per_itr, total, trainer = trainer_phase(
@@ -1723,6 +1746,419 @@ def meta_test_phase(dev, card, snap):
     return grbal_total
 
 
+# phase 17: the multi-rank path. (a) one rank over nccl, at full width:
+# run_grbal_multihost for NEW_ENV_ITR iterations, then one sharded fit epoch
+# watched for host waits on timing data of MH_WATCH_PATHS x FIT_T steps (64
+# meta-train + 16 validation steps); (b) two ranks sharing the card over
+# gloo against one rank, at full width with MH_ENVS envs x MH_T steps
+MH_ENVS, MH_T, MH_FIT_EPOCHS = 6, 40, 3
+MH_WATCH_PATHS, MH_WATCH_VALID = 16, 4
+MH_TIMEOUT = 300                      # seconds a spawned job may take
+MH_STEP_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_infra.py:124-127
+MH_RETURN_RTOL = 2e-3                 # tests/test_multihost.py:95-98
+# the planner's candidate returns, 2 ranks vs 1: the same model on other
+# batch shapes, so f32 rounding apart (tests/test_torch_parallel.py)
+MH_CANDIDATE_TOL = dict(rtol=1e-5, atol=1e-5)
+MH_PATH_KEYS = ('observations', 'actions', 'rewards', 'next_observations')
+NO_COLLECTIVE = dict(all_reduce=0, all_gather=0, broadcast=0)
+
+
+def diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+@contextlib.contextmanager
+def counted_multihost_calls(record):
+    """Appends, for every Sampler.obtain_samples and meta fit call, (label,
+    kernel launches inside it, collectives inside it, extra) to record:
+    a sampling call's extra holds the collectives it made before its
+    gather, i.e. in its steps; a fit's, its epochs and step counts."""
+    from learning_to_adapt_torch.models import MetaMLPDynamicsModel
+    from learning_to_adapt_torch.parallel import mesh as par_mesh
+    from learning_to_adapt_torch.samplers import Sampler
+    originals = (Sampler.obtain_samples, MetaMLPDynamicsModel.fit,
+                 par_mesh.gather)
+    at_gather = []
+
+    def gather(*args, **kwargs):
+        at_gather.append(par_mesh.collective_counts())
+        return originals[2](*args, **kwargs)
+
+    def sample(self, *args, **kwargs):
+        launches, coll = counters(), par_mesh.collective_counts()
+        out = originals[0](self, *args, **kwargs)
+        record.append(('random' if kwargs.get('random') else 'policy',
+                       diff(counters(), launches),
+                       diff(par_mesh.collective_counts(), coll),
+                       diff(at_gather[-1], coll)))
+        return out
+
+    def fit(self, *args, **kwargs):
+        launches, coll = counters(), par_mesh.collective_counts()
+        out = originals[1](self, *args, **kwargs)
+        shapes = self._fit_shapes(self._train['obs'].shape[0],
+                                  self._test['obs'].shape[0],
+                                  self._train['obs'].shape[1])
+        record.append(('fit', diff(counters(), launches),
+                       diff(par_mesh.collective_counts(), coll),
+                       dict(epochs=out['epochs'] + 1, steps=shapes[2],
+                            steps_test=shapes[3])))
+        return out
+    Sampler.obtain_samples, MetaMLPDynamicsModel.fit = sample, fit
+    par_mesh.gather = gather
+    try:
+        yield record
+    finally:
+        (Sampler.obtain_samples, MetaMLPDynamicsModel.fit,
+         par_mesh.gather) = originals
+
+
+def multihost_nccl(dev, card):
+    """Phase 17 (a): run_grbal_multihost at world size 1 over nccl on the
+    card, full width, --task cripple, NEW_ENV_ITR iterations of PATH_LEN
+    steps: per policy iteration 1000 fused-MLP launches, 100 packs and 100
+    Jacobi launches; one all_gather a sampling call and none in its steps;
+    per fit one broadcast and one all_reduce a meta-train and a validation
+    step and one an epoch; then one sharded fit epoch on timing data
+    watched for host waits. Returns the launches of a policy iteration."""
+    import torch
+    from learning_to_adapt_torch import run_grbal, run_grbal_multihost
+    from learning_to_adapt_torch.parallel import mesh as par_mesh
+    from learning_to_adapt_torch.utils import logging as logger
+    mesh = par_mesh.make_mesh(device=str(dev))
+    if (mesh.backend, mesh.world_size, mesh.device) != ('nccl', 1, dev):
+        raise AssertionError(f'mesh {mesh.backend} x {mesh.world_size} on '
+                             f'{mesh.device}')
+    cfg = dict(run_grbal.config, task='cripple', seed=0, device=str(dev),
+               exp_name='chip_smoke', n_itr=NEW_ENV_ITR,
+               max_path_length=PATH_LEN)
+    cwd = os.getcwd()
+    out = io.StringIO()
+    record = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            t0 = time.time()
+            zero_counters()
+            try:
+                with counted_multihost_calls(record), \
+                        contextlib.redirect_stdout(out):
+                    trainer = run_grbal_multihost.run_experiment(cfg,
+                                                                 mesh=mesh)
+            except BaseException:
+                print(out.getvalue()[-8000:], file=sys.stderr)
+                raise
+            finally:
+                logger.Logger.CURRENT.close()
+            run_s = time.time() - t0
+            header, rows = read_progress(
+                run_grbal_multihost.experiment_dir(cfg))
+            os.chdir(cwd)
+        with open(HEADER_CSV) as f:
+            if header != f.readline():
+                raise AssertionError(f'progress.csv header {header!r}')
+        policy = dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
+                      jacobi_solve=PATH_LEN)
+        want = {'random': dict(NO_LAUNCH, jacobi_solve=PATH_LEN),
+                'policy': policy, 'fit': NO_LAUNCH}
+        gathered = dict(NO_COLLECTIVE, all_gather=1)
+        labels = ['random', 'fit'] + ['policy', 'fit'] * (NEW_ENV_ITR - 1)
+        if [r[0] for r in record] != labels:
+            raise AssertionError(f'calls {[r[0] for r in record]}')
+        for what, launches, coll, extra in record:
+            if launches != want[what]:
+                raise AssertionError(f'{what}: launches {launches} != '
+                                     f'{want[what]}')
+            if what == 'fit':
+                per_epoch = extra['steps'] + extra['steps_test'] + 1
+                need = dict(NO_COLLECTIVE, broadcast=1,
+                            all_reduce=extra['epochs'] * per_epoch)
+            else:
+                need = gathered
+                if extra != NO_COLLECTIVE:
+                    raise AssertionError(f'{what}: collectives in its steps '
+                                         f'{extra}')
+            if coll != need:
+                raise AssertionError(f'{what}: collectives {coll} != {need}')
+        log(f'phase 17 (a) run_grbal_multihost, 1 rank over nccl on {card}: '
+            f'{cfg["num_rollouts"]} envs x {PATH_LEN} steps, {NEW_ENV_ITR} '
+            f'itrs in {run_s:.1f} s; per call (launches, collectives, '
+            f'extra): {json.dumps(record)}')
+        for r in rows:
+            log(f'  itr {r["Itr"]}: Time-EnvSampling '
+                f'{float(r["Time-EnvSampling"]):.3f} s, Time-ModelFit '
+                f'{float(r["Time-ModelFit"]):.3f} s, Epochs {r["Epochs"]}, '
+                f'Pre-Loss {float(r["Pre-Loss"]):.5f}, Post-Loss '
+                f'{float(r["Post-Loss"]):.5f}')
+
+        model = trainer.dynamics_model
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        train = fit_data(model, MH_WATCH_PATHS, gen)
+        test = fit_data(model, MH_WATCH_VALID, gen)
+        _, _, steps, steps_test = model._fit_shapes(
+            MH_WATCH_PATHS, MH_WATCH_VALID, FIT_T)
+        state = dict(params=model.params, opt_state=model.opt_state)
+
+        def epoch():
+            (state['params'], state['opt_state'], post, pre,
+             valid) = model.epoch_fn(state['params'], state['opt_state'],
+                                     model.normalizer, train, test,
+                                     MH_WATCH_PATHS, MH_WATCH_VALID, steps,
+                                     steps_test, gen)
+            return torch.stack([post, pre, valid]).tolist()
+        epoch()                                      # warm-up
+        before = par_mesh.collective_counts()
+        t0 = time.time()
+        epoch()
+        epoch_s = time.time() - t0
+        coll = diff(par_mesh.collective_counts(), before)
+        need = dict(NO_COLLECTIVE, all_reduce=steps + steps_test + 1)
+        if coll != need:
+            raise AssertionError(f'sharded epoch: collectives {coll} != '
+                                 f'{need}')
+        log(f'phase 17 (a) sharded fit epoch (nccl, 1 rank) on {card}: '
+            f'{steps} meta-train + {steps_test} valid steps, {epoch_s:.3f} s '
+            f'= {epoch_s * 1e3 / (steps + steps_test):.3f} ms a step, '
+            f'collectives {json.dumps(coll)}')
+        watch_host_syncs(epoch, steps, f'one sharded fit epoch of {steps} '
+                         'meta-train steps (nccl all_reduce each)')
+    finally:
+        os.chdir(cwd)
+        mesh.close()
+    return record[2][1]
+
+
+@contextlib.contextmanager
+def planner_returns():
+    """Collects the model-rollout returns of every candidate that random
+    shooting scores (one (envs * candidates,) tensor a step, env-major)."""
+    from learning_to_adapt_torch.policies import planners
+    returns, record = planners._returns, []
+
+    def spy(*args, **kwargs):
+        out = returns(*args, **kwargs)
+        record.append(out)
+        return out
+    planners._returns = spy
+    try:
+        yield record
+    finally:
+        planners._returns = returns
+
+
+def check_policy_parting(a, b, ret_a, ret_b):
+    """Holds the policy paths a (dict of (envs, T, ...)) of the 2-rank job
+    to b of the 1-rank job, with their candidate returns ret_a, ret_b (T,
+    envs, n): up to the first step where the paths part, every return to
+    MH_CANDIDATE_TOL and every step to 1e-5. A parting passes only as a
+    near tie: after step 0, in one env, whose best two returns lie within
+    twice the two jobs' return difference. Returns (the parting step or
+    None, the largest return difference before it)."""
+    import numpy as np
+    close = np.ones(MH_T, bool)
+    for k in MH_PATH_KEYS:
+        ok = np.isclose(a[k], b[k], **MH_STEP_TOL)
+        close &= ok.reshape(ok.shape[0], MH_T, -1).all(axis=(0, 2))
+    parted = np.flatnonzero(~close)
+    step = int(parted[0]) if parted.size else None
+    end = MH_T if step is None else step + 1
+    if not np.allclose(ret_a[:end], ret_b[:end], **MH_CANDIDATE_TOL):
+        raise AssertionError('policy call: candidate returns off by '
+                             f'{np.abs(ret_a[:end] - ret_b[:end]).max()} '
+                             f'up to step {end - 1}')
+    worst = float(np.abs(ret_a[:end] - ret_b[:end]).max())
+    if step is None:
+        return None, worst
+    acted = np.flatnonzero(~np.isclose(
+        a['actions'][:, step], b['actions'][:, step],
+        **MH_STEP_TOL).all(axis=-1))
+    if step == 0 or acted.size != 1:
+        raise AssertionError(f'policy call: the paths part at step {step} '
+                             f'in envs {acted.tolist()}')
+    e = int(acted[0])
+    noise = np.abs(ret_a[step, e] - ret_b[step, e]).max()
+    gap = min(float(np.diff(np.sort(r)[-2:])[0])
+              for r in (ret_a[step, e], ret_b[step, e]))
+    if gap > 2 * noise:
+        raise AssertionError(f'policy call: env {e} parts at step {step} '
+                             f'with its best two returns {gap} apart, '
+                             f'more than twice their difference {noise}')
+    return step, worst
+
+
+def _multihost_rank(out_dir):
+    """Phase 17 (b), one rank (started by parallel/mesh.py spawn): GrBAL at
+    full width on cuda:0 over gloo with MH_ENVS envs x MH_T steps over the
+    ranks: a random sampling call, a MH_FIT_EPOCHS-epoch sharded meta fit on
+    the gathered paths (rank 0 also fits an unsharded twin on the same
+    paths), a policy sampling call; writes its paths, parameters, counts
+    and seconds to out_dir/rank<r>_of<W>.npz."""
+    import numpy as np
+    import torch
+    from learning_to_adapt_torch.envs import HalfCheetahEnv, normalize
+    from learning_to_adapt_torch.models import MetaMLPDynamicsModel
+    from learning_to_adapt_torch.models.optim import tree_leaves
+    from learning_to_adapt_torch.parallel import mesh as par_mesh
+    from learning_to_adapt_torch.policies import MPCController
+    from learning_to_adapt_torch.samplers import Sampler
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)   # the ranks share the host's cores
+    mesh = par_mesh.make_mesh(device='cuda:0', backend='gloo')
+    try:
+        dev = mesh.device
+        env = normalize(HalfCheetahEnv(task='cripple',
+                                       reset_every_episode=True, device=dev))
+
+        def model():
+            return MetaMLPDynamicsModel(
+                'dyn_model', env, hidden_sizes=MLP_DIMS[1:-1],
+                meta_batch_size=10, inner_learning_rate=INNER_LR,
+                learning_rate=1e-3, hidden_nonlinearity='relu',
+                batch_size=ADAPT_BATCH, seed=0, device=dev)
+        sharded = model()
+        sharded.mesh = mesh
+        policy = MPCController('policy', env, sharded, discount=1.0,
+                               n_candidates=N_CANDIDATES, horizon=HORIZON)
+        sampler = Sampler(env, policy, num_rollouts=MH_ENVS,
+                          max_path_length=MH_T, adapt_batch_size=ADAPT_BATCH,
+                          seed=0, device=dev, mesh=mesh)
+        out = {}
+        coll = par_mesh.collective_counts()
+        rand = sampler.obtain_samples(random=True)
+        out['random_s'] = sampler.last_seconds
+        data = [rand[k] for k in ('observations', 'actions',
+                                  'next_observations')]
+        fit = sharded.fit(*data, epochs=MH_FIT_EPOCHS)
+        out['fit_steps'] = np.array([fit['epochs'] + 1] + list(
+            sharded._fit_shapes(sharded._train['obs'].shape[0],
+                                sharded._test['obs'].shape[0], MH_T)[2:]))
+        if mesh.rank == 0:
+            twin = model()
+            twin.fit(*data, epochs=MH_FIT_EPOCHS)
+            for i, x in enumerate(tree_leaves(twin.params)):
+                out[f'twin_{i}'] = x.cpu().numpy()
+        for i, x in enumerate(tree_leaves(sharded.params)):
+            out[f'params_{i}'] = x.cpu().numpy()
+        zero_counters()
+        with planner_returns() as returns:
+            pol = sampler.obtain_samples()
+        out['policy_s'] = sampler.last_seconds
+        # (T, this rank's envs, candidates)
+        out['policy_returns'] = torch.stack(returns).reshape(
+            MH_T, MH_ENVS // mesh.world_size, -1).cpu().numpy()
+        out['launches'] = np.array([counters()[k] for k in
+                                    ('fused_mlp', 'pack', 'jacobi_solve')])
+        out['collectives'] = np.array(list(diff(
+            par_mesh.collective_counts(), coll).values()))
+        for k in MH_PATH_KEYS:
+            out[f'random_{k}'], out[f'policy_{k}'] = rand[k], pol[k]
+        np.savez(os.path.join(out_dir, f'rank{mesh.rank}_of'
+                              f'{mesh.world_size}.npz'), **out)
+    finally:
+        mesh.close()
+
+
+def multihost_gloo(card):
+    """Phase 17 (b): two ranks on the one card over gloo against one rank
+    (each job's ranks started by spawn): the random call's paths to 1e-5,
+    the sharded meta fit bit for bit (both ranks alike, and as its
+    unsharded twin on the same paths; and as the 1-rank job's when both
+    jobs gathered the same paths bit for bit), the policy call as
+    check_policy_parting holds it and its reward sum to rtol 2e-3 where
+    nothing parts, and 10 fused-MLP launches a policy step on every rank.
+    Returns the launches of rank 0 of the 2-rank job."""
+    import numpy as np
+    from learning_to_adapt_torch.parallel import mesh as par_mesh
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in (1, 2):
+            t0 = time.time()
+            par_mesh.spawn(_multihost_rank, world, args=(tmp,),
+                           timeout=MH_TIMEOUT)
+            runs[world] = [dict(np.load(os.path.join(
+                tmp, f'rank{r}_of{world}.npz'))) for r in range(world)]
+            rates = ', '.join(
+                f'rank {r} {MH_ENVS * MH_T / float(x["policy_s"]):.1f}'
+                for r, x in enumerate(runs[world]))
+            log(f'phase 17 (b) {world}-rank job (gloo, cuda:0) on {card}: '
+                f'{time.time() - t0:.1f} s with start-up; policy call '
+                f'{rates} env-steps/s ({MH_ENVS} envs x {MH_T} steps over '
+                'the job)')
+    one, (r0, r1) = runs[1][0], runs[2]
+
+    def leaves(x, prefix):
+        return [x[f'{prefix}{i}'] for i in range(sum(
+            k.startswith(prefix) for k in x))]
+    want = np.array([HORIZON * MH_T, MH_T, MH_T])
+    for r, x in enumerate(runs[2] + runs[1]):
+        if not np.array_equal(x['launches'], want):
+            raise AssertionError(f'rank {r}: policy call launches '
+                                 f'{x["launches"]} != {want}')
+        # 2 all_gathers; the fit's broadcast and its all_reduces
+        epochs, steps, steps_test = x['fit_steps']
+        need = [epochs * (steps + steps_test + 1), 2, 1]
+        if x['collectives'].tolist() != need:
+            raise AssertionError(f'rank {r}: collectives '
+                                 f'{x["collectives"]} != {need}')
+    for k in MH_PATH_KEYS:
+        for call in ('random', 'policy'):
+            if not np.array_equal(r0[f'{call}_{k}'], r1[f'{call}_{k}']):
+                raise AssertionError(f'ranks gathered other {call} {k}')
+        a, b = r0[f'random_{k}'], one[f'random_{k}']
+        if not np.allclose(a, b, **MH_STEP_TOL):
+            raise AssertionError(f'random call {k}: 2 ranks vs 1 off by '
+                                 f'{np.abs(a - b).max()}')
+    same_paths = all(np.array_equal(r0[f'random_{k}'], one[f'random_{k}'])
+                     for k in MH_PATH_KEYS)
+    worst = max(float(np.abs(r0[f'random_{k}'] - one[f'random_{k}']).max())
+                for k in MH_PATH_KEYS)
+    pairs = [('rank 0 vs rank 1', r1, 'params_'),
+             ('sharded vs unsharded twin', r0, 'twin_')]
+    if same_paths:
+        pairs.append(('2 ranks vs 1 rank', one, 'params_'))
+    for what, other, prefix in pairs:
+        for a, b in zip(leaves(r0, 'params_'), leaves(other, prefix)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f'meta fit {what}: not bit for bit '
+                                     f'({np.abs(a - b).max()})')
+    log(f'phase 17 (b) random call: 2 ranks vs 1 rank max |diff| {worst:.3g}'
+        f' ({"bit for bit" if same_paths else "not bit for bit"}); meta fit '
+        f'bit for bit: {", ".join(w for w, _, _ in pairs)}')
+
+    step, worst = check_policy_parting(
+        {k: r0[f'policy_{k}'] for k in MH_PATH_KEYS},
+        {k: one[f'policy_{k}'] for k in MH_PATH_KEYS},
+        np.concatenate([r0['policy_returns'], r1['policy_returns']], axis=1),
+        one['policy_returns'])
+    got, ref = r0['policy_rewards'].sum(), one['policy_rewards'].sum()
+    if step is not None:
+        log(f'phase 17 (b) policy call: a near tie parts the paths at step '
+            f'{step} (candidate returns within {worst:.3g} and steps within '
+            f'1e-5 up to it); reward sums {got:.5f} vs {ref:.5f}')
+    elif not np.isclose(got, ref, rtol=MH_RETURN_RTOL):
+        raise AssertionError(f'policy reward sum {got} vs {ref}')
+    else:
+        log(f'phase 17 (b) policy call: every step within 1e-5, candidate '
+            f'returns within {worst:.3g}; reward sums {got:.5f} vs '
+            f'{ref:.5f}')
+    return dict(NO_LAUNCH, fused_mlp=int(r0['launches'][0]),
+                pack=int(r0['launches'][1]),
+                jacobi_solve=int(r0['launches'][2]))
+
+
+def multihost_phase(dev, card):
+    """Phase 17: (a), then (b). Returns the launches of a policy iteration
+    of (a), the run at full path length."""
+    t0 = time.time()
+    launches = multihost_nccl(dev, card)
+    gloo_launches = multihost_gloo(card)
+    log(f'phase 17 took {time.time() - t0:.1f} s on {card}; 2-rank policy '
+        f'call launches on rank 0: {json.dumps(gloo_launches)}')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1799,6 +2235,8 @@ def main():
     meta_test_launches = meta_test_phase(dev, card, snap)
     snaps.cleanup()
     stamp('meta-test, replay, executor and entry()')
+    multihost_launches = multihost_phase(dev, card)
+    stamp('multi-rank path')
     for k in kernels:
         # the cluster kernel's main path is the blocks env's
         k['launches'] = (env_itr['HalfCheetahBlocksEnv'][k['name']]
@@ -1816,6 +2254,7 @@ def main():
             k[key] = env_itr[cls_name][k['name']]
         k['ant_mb_mpc_random_launches'] = ant_mb_random[k['name']]
         k['meta_test_launches'] = meta_test_launches[k['name']]
+        k['multihost_launches'] = multihost_launches[k['name']]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
             'library_device_ms', 'device_ms', 'floor_ms', 'ms_512',
@@ -1824,7 +2263,7 @@ def main():
             'mb_mpc_trainer_launches', 'rebal_trainer_launches',
             'hfield_launches', 'blocks_launches', 'arm_launches',
             'ant_launches', 'ant_mb_mpc_random_launches',
-            'meta_test_launches',
+            'meta_test_launches', 'multihost_launches',
             'mb_mpc_max_abs_err', 'mb_mpc_ms', 'mb_mpc_device_ms',
             'mb_mpc_plain_ms', 'mb_mpc_bound_ms', 'mb_mpc_library_ms',
             'mb_mpc_library_device_ms', 'arm_max_abs_err', 'arm_ms',

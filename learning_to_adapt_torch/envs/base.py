@@ -12,6 +12,7 @@ Tasks (dynamics perturbations) are data inside EnvState.mm (a MutableModel)
 plus env-specific extras in EnvState.task, resampled per episode from the
 second episode on when reset_every_episode is set.
 """
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -40,6 +41,19 @@ class EnvState:
     t: Any            # (E,) int32 steps taken in current episode
     episode: Any      # (E,) int32 episode counter
     rng: Any = None   # torch.Generator of the action noise (the reset's)
+
+
+def state_rows(state: EnvState, rows) -> EnvState:
+    """The EnvState of the envs at `rows` (a slice of the env axis); the
+    generator is shared."""
+    def take(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name)[rows]
+            for f in dataclasses.fields(obj)})
+    return EnvState(phys=take(state.phys), mm=take(state.mm),
+                    task={k: v[rows] for k, v in state.task.items()},
+                    obs=state.obs[rows], t=state.t[rows],
+                    episode=state.episode[rows], rng=state.rng)
 
 
 class TorchEnv(Serializable):

@@ -6,7 +6,9 @@ Each entry point is an `EntryPoint`: its experiment name, its config dict
 (a copy of its JAX run script's), a `build(config, env, device) ->
 (dynamics_model, policy)` and whether its sample processor keeps the path
 axis. Runs go on the card unless config['device'] says otherwise; without a
-card they raise before anything is written.
+card they raise before anything is written. Given a mesh
+(parallel/mesh.py), a run shards its envs and its fits over the mesh's
+ranks, and only rank 0 writes the experiment directory.
 """
 import argparse
 import json
@@ -44,27 +46,37 @@ class EntryPoint:
         return os.path.join(os.getcwd(), 'data', self.exp_name,
                             config.get('exp_name', ''))
 
-    def run_experiment(self, config):
+    def run_experiment(self, config, mesh=None):
         """Builds env, model, policy and sampler from config, resumes from
         the experiment's params.pkl when config['resume'] is set, trains,
         and returns the Trainer. config['device'] (default 'cuda') places
-        every tensor."""
+        every tensor, or with `mesh` the mesh's device: the sampler's envs
+        and the model's fit then shard over the mesh's 'env' axis, and the
+        ranks other than 0 log and snapshot nothing, so that the ranks do
+        not race on one progress.csv."""
         # raises before anything is written when the card is missing
-        device = resolve_device(config.get('device', 'cuda'))
+        device = (mesh.device if mesh is not None
+                  else resolve_device(config.get('device', 'cuda')))
         exp_dir = self.experiment_dir(config)
         if config.get('resume'):
             # refuse to resume under a mismatched task distribution (would
             # contaminate the holdout split and clobber the recorded config)
             check_resume_config(exp_dir, config)
-        logger.configure(dir=exp_dir, format_strs=['stdout', 'log', 'csv'],
-                         snapshot_mode='last')
-        with open(os.path.join(exp_dir, 'params.json'), 'w') as f:
-            json.dump(config, f, indent=2, sort_keys=True, cls=ClassEncoder)
+        if mesh is None or mesh.rank == 0:
+            logger.configure(dir=exp_dir,
+                             format_strs=['stdout', 'log', 'csv'],
+                             snapshot_mode='last')
+            with open(os.path.join(exp_dir, 'params.json'), 'w') as f:
+                json.dump(config, f, indent=2, sort_keys=True,
+                          cls=ClassEncoder)
+        else:
+            logger.Logger.CURRENT = logger.Logger()  # writes nothing
 
         env = normalize(config['env'](reset_every_episode=True,
                                       task=config['task'], device=device,
                                       **task_env_kwargs(config)))
         dynamics_model, policy = self.build(config, env, device)
+        dynamics_model.mesh = mesh
         # config['n_parallel'] has no counterpart: every env of the batch
         # steps at once on the device
         sampler = Sampler(
@@ -75,6 +87,7 @@ class EntryPoint:
             num_rollouts=config['num_rollouts'],
             adapt_batch_size=config.get('adapt_batch_size'),
             device=device,
+            mesh=mesh,
         )
 
         start_itr = 0

@@ -16,6 +16,17 @@ no train step waits for the device. The host RNG (numpy, seed + 1) is
 consumed exactly as the JAX package consumes it (one permutation per fit
 for the train/valid split, one draw that seeds the window generator), so
 every fit's split and aggregated buffers equal the JAX package's.
+
+With `model.mesh` set (parallel/mesh.py) every rank holds the whole host
+dataset (the sampler gathered it), so the split, the normalizer and the
+window generator's seed come out alike on every rank, but stages only its
+slice of the padded paths. The window indices are drawn alike on every
+rank; each rank writes the windows of the paths it holds and zeros
+elsewhere, and one all_reduce (sum) a step assembles them everywhere, as
+the JAX package's sharded epoch lowers its global gather. Adding zeros is
+exact, so the second-order step runs the same on every rank and a W-rank
+fit equals the 1-rank fit bit for bit on one device type; the sharding
+scales the dataset's memory, not the step's work.
 """
 import numpy as np
 import torch
@@ -29,6 +40,7 @@ from learning_to_adapt_torch.models.optim import (
     ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
     state_from_jax_numpy, tree_to_numpy)
 from learning_to_adapt_torch.ops.fused_mlp import PackedMLP, fused_mlp_forward
+from learning_to_adapt_torch.parallel import mesh as par_mesh
 
 PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
 
@@ -89,6 +101,7 @@ class MetaMLPDynamicsModel:
         self._test = None
         self._rng = np.random.RandomState(seed + 1)
         self._adapted_params = None  # params with a leading env axis, or None
+        self.mesh = None  # parallel/mesh.py: the fit's paths shard over 'env'
 
     # ----------------------------------------------------------- core math
     def _forward(self, params, x):
@@ -161,13 +174,13 @@ class MetaMLPDynamicsModel:
     def stage(self, data, capacity):
         """Paths dict(obs, act, delta) of numpy [P, T, d] -> one
         (capacity, T, obs+act+obs) f32 tensor on the device, zero-padded
-        beyond P."""
+        beyond P; with a mesh, this rank's slice of the capacity."""
         count, t_len = data['obs'].shape[:2]
         dims = [data[k].shape[-1] for k in ('obs', 'act', 'delta')]
         out = np.zeros((capacity, t_len, sum(dims)), np.float32)
         out[:count] = np.concatenate([data['obs'], data['act'],
                                       data['delta']], axis=-1)
-        return torch.as_tensor(out, device=self.device)
+        return par_mesh.stage_fit_data(self, out)
 
     def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
             valid_split_ratio=None, rolling_average_persitency=None,
@@ -212,6 +225,7 @@ class MetaMLPDynamicsModel:
         t_len = self._train['obs'].shape[1]
         cap_tr, cap_te, steps_per_epoch, steps_test = self._fit_shapes(
             p_tr, p_te, t_len)
+        par_mesh.stage_model_state(self)
         train = self.stage(self._train, cap_tr)
         test = self.stage(self._test, cap_te)
 
@@ -225,7 +239,7 @@ class MetaMLPDynamicsModel:
              valid) = self.epoch_fn(self.params, self.opt_state,
                                     self.normalizer, train, test, p_tr, p_te,
                                     steps_per_epoch, steps_test, generator)
-            # the epoch's one read of device values
+            # the epoch's one read of device values, alike on every rank
             post_loss, pre_loss, valid_loss = torch.stack(
                 [post, pre, valid]).tolist()
             if valid_avg is None:
@@ -252,16 +266,21 @@ class MetaMLPDynamicsModel:
         """meta_bs windows of 2*bs steps from staged paths data: path index
         in [0, n_valid), offset in [bs, T - bs), rows [off - bs, off + bs),
         drawn on the device, or window = injected (pidx, offs). Returns
-        (obs, act, delta), each (meta_bs, 2*bs, d)."""
+        (obs, act, delta), each (meta_bs, 2*bs, d). With a mesh, data is
+        this rank's slice of the paths, the indices are global, and one
+        all_reduce assembles the windows on every rank."""
         if window is None:
             mbs, bs, dev = self.meta_batch_size, self.batch_size, data.device
             pidx = torch.randint(0, n_valid, (mbs,), generator=generator,
                                  device=dev)
-            offs = torch.randint(bs, data.shape[1] - bs, (mbs,),
+            # paths of exactly 2*bs steps have one offset, bs, which
+            # jax.random.randint gives when its bounds meet
+            offs = torch.randint(bs, max(data.shape[1] - bs, bs + 1), (mbs,),
                                  generator=generator, device=dev)
         else:
             pidx, offs = window
-        w = data[pidx[:, None], offs[:, None] + span]
+        w, = par_mesh.take_rows(self.mesh, (data,), pidx[:, None],
+                                offs[:, None] + span)
         return w.split([self.obs_dim, self.act_dim, self.obs_dim], dim=-1)
 
     @torch.no_grad()
@@ -278,7 +297,10 @@ class MetaMLPDynamicsModel:
         for the device. Each step is labelled for torch.profiler:
         'fit.train_step' (inside it 'fit.meta_loss', the forward with the
         inner step; 'fit.meta_grad', the backward through it; 'fit.adam',
-        clip and Adam) and 'fit.valid_step'."""
+        clip and Adam) and 'fit.valid_step'. With a mesh, one all_reduce a
+        step assembles its windows (`_windows`) and one more, at the end,
+        takes the losses' max over the ranks, which hold the same values,
+        so every rank takes the same early stop."""
         bs = self.batch_size
         span = torch.arange(-bs, bs, device=train.device)
         n_w = len(params['w'])
@@ -309,8 +331,11 @@ class MetaMLPDynamicsModel:
                 valids.append(self._mse(params, norm.norm_obs(o),
                                         norm.norm_act(a),
                                         norm.norm_delta(d)).mean())
-        return (params, opt_state, torch.stack(posts).mean(),
-                torch.stack(pres).mean(), torch.stack(valids).mean())
+        losses = torch.stack([torch.stack(posts).mean(),
+                              torch.stack(pres).mean(),
+                              torch.stack(valids).mean()])
+        losses = par_mesh.all_reduce(self.mesh, losses, op='max')
+        return (params, opt_state, *losses)
 
     # ------------------------------------------------------------- adapt
     def adapt_fn(self, params, norm, obs, act, obs_next):

@@ -22,6 +22,19 @@ per epoch, for the early stop: no train step waits for the device. The host
 RNG (numpy, seed + 1) is consumed as the JAX package consumes it: one
 permutation per fit for the split and one draw that seeds the device
 generator of the epochs' permutations.
+
+With `model.mesh` set (parallel/mesh.py) the fit is data parallel: every
+rank holds the whole host dataset (the sampler gathered it) and draws the
+same permutation, but stages only its slice of the padded rows. A train
+step makes two all_reduces: the first assembles the minibatch's rows and
+weights on every rank (each rank writes the rows it holds, zeros
+elsewhere); each rank then takes the loss and gradient of its share of the
+minibatch, batch_size / W rows, over the global max(sum(w), 1); the second,
+of a flat buffer, sums the gradients and the loss, and the clip's global
+norm is taken after it, so every rank steps alike. One more all_reduce an
+epoch sums the validation terms of the rows each rank holds. This agrees
+with the 1-rank fit up to f32 reduction order. Without a mesh the same
+code runs with no collective.
 """
 import numpy as np
 import torch
@@ -38,6 +51,7 @@ from learning_to_adapt_torch.models.optim import (
     tree_unflatten)
 from learning_to_adapt_torch.ops.fused_mlp import (
     PackedMLP, fused_mlp_forward, pack_weights)
+from learning_to_adapt_torch.parallel import mesh as par_mesh
 
 PAD_CHUNK = 16384  # staged dataset capacity grows in row chunks
 
@@ -96,6 +110,7 @@ class MLPDynamicsModel:
         self._train = None  # dict of numpy [rows, d], raw
         self._test = None
         self._rng = np.random.RandomState(seed + 1)
+        self.mesh = None  # parallel/mesh.py: the fit's rows shard over 'env'
 
     # ------------------------------------------------------------------ fit
     def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
@@ -137,6 +152,7 @@ class MLPDynamicsModel:
             self._test = {k: np.concatenate([self._test[k], new_te[k]])
                           for k in new_te}
 
+        par_mesh.stage_model_state(self)
         train, test = self.stage(self._train), self.stage(self._test)
         n_train = self._train['obs'].shape[0]
         n_batches = _bucket_pow2(max(n_train // self.batch_size, 1))
@@ -151,7 +167,7 @@ class MLPDynamicsModel:
              valid_t) = self.epoch_fn(self.params, self.opt_state,
                                       self.normalizer, train, test,
                                       n_batches, generator)
-            # the epoch's one read of device values
+            # the epoch's one read of device values, alike on every rank
             train_loss, valid_loss = torch.stack([train_t, valid_t]).tolist()
             if valid_avg is None:
                 # seeded above the first value so that epoch 0 never stops
@@ -176,12 +192,12 @@ class MLPDynamicsModel:
     def stage(self, data):
         """Rows dict(obs, act, delta) of numpy [rows, d] -> (rows (cap,
         obs+act+obs) f32, weights (cap,)) on the device, zero-padded to the
-        PAD_CHUNK capacity."""
+        PAD_CHUNK capacity; with a mesh, this rank's slice of the
+        capacity."""
         count = data['obs'].shape[0]
         (rows,), w = _pad_rows([np.concatenate(
             [data['obs'], data['act'], data['delta']], axis=-1)], count)
-        return (torch.as_tensor(rows, device=self.device),
-                torch.as_tensor(w, device=self.device))
+        return par_mesh.stage_fit_data(self, (rows, w))
 
     def _forward_normalized(self, params, norm, obs, act):
         """f32 forward in normalized space: the normalized delta, with a
@@ -190,15 +206,20 @@ class MLPDynamicsModel:
         return core.mlp_forward(params, x, self.hidden_nonlinearity,
                                 self.output_nonlinearity)
 
-    def loss_fn(self, params, norm, rows, w):
-        """Weighted mean squared error of staged rows: the squared error's
-        mean over obs dims, times the row weight, summed (over members
-        too) and divided by max(sum(w), 1)."""
+    def loss_terms(self, params, norm, rows, w):
+        """(the squared error's mean over obs dims, times the row weight,
+        summed over rows and members; sum(w)) of staged rows."""
         obs, act, delta = rows.split([self.obs_dim, self.act_dim,
                                       self.obs_dim], dim=-1)
         pred = self._forward_normalized(params, norm, obs, act)
         err = torch.square(pred - norm.norm_delta(delta))
-        return torch.sum(err.mean(-1) * w) / torch.clamp(w.sum(), min=1.0)
+        return torch.sum(err.mean(-1) * w), w.sum()
+
+    def loss_fn(self, params, norm, rows, w):
+        """Weighted mean squared error of staged rows: loss_terms' sum
+        divided by max(sum(w), 1)."""
+        num, den = self.loss_terms(params, norm, rows, w)
+        return num / torch.clamp(den, min=1.0)
 
     @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_batches,
@@ -207,28 +228,40 @@ class MLPDynamicsModel:
         order of a permutation of the padded train capacity (`perm`, or one
         drawn on the device), each a loss, gradient, clip and Adam step;
         then the loss on the whole padded test set. train/test: staged (see
-        `stage`). Returns (params, opt_state, mean train loss, valid loss),
-        the losses 0-d device tensors; nothing here waits for the device.
-        Each step is labelled 'fit.train_step' for torch.profiler."""
+        `stage`; with a mesh, this rank's slice of the rows, and perm one
+        of the global capacity). Returns (params, opt_state, mean train loss,
+        valid loss), the losses 0-d device tensors; nothing here waits for
+        the device. Each step is labelled 'fit.train_step' for
+        torch.profiler."""
         rows, w = train
         bs = self.batch_size
+        mesh = self.mesh
         if perm is None:
-            perm = torch.randperm(rows.shape[0], generator=generator,
+            cap = rows.shape[0] * (1 if mesh is None else mesh.shape['env'])
+            perm = torch.randperm(cap, generator=generator,
                                   device=rows.device)
         sel = perm[:n_batches * bs].reshape(n_batches, bs)
+        share = par_mesh.batch_share(mesh, bs)
         losses = []
         for i in range(n_batches):
             with record_function('fit.train_step'):
+                mb_rows, mb_w = par_mesh.take_rows(mesh, (rows, w), sel[i])
                 leaves = [p.detach().requires_grad_(True)
                           for p in tree_leaves(params)]
                 with torch.enable_grad():
-                    loss = self.loss_fn(tree_unflatten(params, leaves), norm,
-                                        rows[sel[i]], w[sel[i]])
+                    num, _ = self.loss_terms(tree_unflatten(params, leaves),
+                                             norm, mb_rows[share],
+                                             mb_w[share])
+                    loss = num / torch.clamp(mb_w.sum(), min=1.0)
                     grads = torch.autograd.grad(loss, leaves)
+                *grads, loss = par_mesh.all_reduce_flat(
+                    mesh, list(grads) + [loss.detach()])
                 params, opt_state = self.optimizer.update(
                     tree_unflatten(params, grads), opt_state, params)
-                losses.append(loss.detach())
-        valid = self.loss_fn(params, norm, *test)
+                losses.append(loss)
+        num, den = par_mesh.all_reduce_flat(
+            mesh, list(self.loss_terms(params, norm, *test)))
+        valid = num / torch.clamp(den, min=1.0)
         return params, opt_state, torch.stack(losses).mean(), valid
 
     # -------------------------------------------------------------- predict

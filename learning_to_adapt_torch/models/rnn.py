@@ -24,6 +24,18 @@ here, as the JAX model runs outside both Pallas kernels.
 The host RNG (numpy, seed + 1) is consumed as the JAX package consumes it:
 one permutation of the paths per fit for the split and one draw that seeds
 the device generator of the path indices.
+
+With `model.mesh` set (parallel/mesh.py) the fit is data parallel: every
+rank holds the whole host dataset (the sampler gathered it) and draws the
+same path indices, but stages only its slice of the padded paths. A train
+step makes two all_reduces: the first assembles the drawn paths on every
+rank (each rank writes the paths it holds, zeros elsewhere); each rank then
+takes the TBPTT loss and gradient of its share of the batch, batch_size / W
+paths, scaled by that share; the second, of a flat buffer, sums the
+gradients and the loss, so the clip's global norm and the Adam step come
+out alike on every rank. One more all_reduce an epoch sums the validation
+terms of the paths each rank holds. This agrees with the 1-rank fit up to
+f32 reduction order. Without a mesh the same code runs with no collective.
 """
 import numpy as np
 import torch
@@ -38,6 +50,7 @@ from learning_to_adapt_torch.models.optim import (
     ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
     state_from_jax_numpy, tree_from_numpy, tree_leaves, tree_map,
     tree_to_numpy, tree_unflatten)
+from learning_to_adapt_torch.parallel import mesh as par_mesh
 
 PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
 
@@ -88,6 +101,7 @@ class RNNDynamicsModel:
         self._train = None  # dict of numpy [P, T, d], raw
         self._test = None
         self._rng = np.random.RandomState(seed + 1)
+        self.mesh = None  # parallel/mesh.py: the fit's paths shard over 'env'
 
     # ------------------------------------------------------------- forward
     def get_initial_hidden(self, batch_size):
@@ -185,6 +199,7 @@ class RNNDynamicsModel:
                           for k in new_te}
 
         p_tr = self._train['obs'].shape[0]
+        par_mesh.stage_model_state(self)
         train, _ = self.stage(self._train)
         test = self.stage(self._test)
         n_batches = _bucket_pow2(max(p_tr // self.batch_size, 1))
@@ -199,7 +214,7 @@ class RNNDynamicsModel:
              valid_t) = self.epoch_fn(self.params, self.opt_state,
                                       self.normalizer, train, test, p_tr,
                                       n_batches, generator)
-            # the epoch's one read of device values
+            # the epoch's one read of device values, alike on every rank
             train_loss, valid_loss = torch.stack([train_t, valid_t]).tolist()
             if valid_avg is None:
                 valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
@@ -222,7 +237,8 @@ class RNNDynamicsModel:
     def stage(self, data):
         """Paths dict(obs, act, delta) of numpy [P, T, d] -> (paths (cap, T,
         obs+act+obs) f32, weights (cap,)) on the device, zero-padded to a
-        multiple of PATH_CHUNK paths."""
+        multiple of PATH_CHUNK paths; with a mesh, this rank's slice of the
+        capacity."""
         count, t_len = data['obs'].shape[:2]
         cap = int(np.ceil(count / PATH_CHUNK)) * PATH_CHUNK
         rows = np.zeros((cap, t_len, 2 * self.obs_dim + self.act_dim),
@@ -231,8 +247,7 @@ class RNNDynamicsModel:
                                        data['delta']], axis=-1)
         w = np.zeros((cap,), np.float32)
         w[:count] = 1.0
-        return (torch.as_tensor(rows, device=self.device),
-                torch.as_tensor(w, device=self.device))
+        return par_mesh.stage_fit_data(self, (rows, w))
 
     def _split(self, paths):
         return paths.split([self.obs_dim, self.act_dim, self.obs_dim],
@@ -256,16 +271,16 @@ class RNNDynamicsModel:
             hidden = tree_map(torch.Tensor.detach, hidden)
         return total / n_chunks
 
-    def valid_loss(self, params, norm, test):
-        """Masked mean squared error over the whole padded test set: each
-        path's mean, weighted by its mask, over max(real paths, 1)."""
+    def valid_terms(self, params, norm, test):
+        """(each test path's mean squared error weighted by its mask and
+        summed, the mask's sum) over the padded test paths."""
         paths, w = test
         obs, act, delta = self._split(paths)
         pred, _ = self.forward_seq(params, norm, obs, act,
                                    self.get_initial_hidden(paths.shape[0]))
         err = torch.mean(torch.square(pred - norm.norm_delta(delta)),
                          dim=(1, 2))
-        return torch.sum(err * w) / torch.clamp(w.sum(), min=1.0)
+        return torch.sum(err * w), w.sum()
 
     @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_tr, n_batches,
@@ -274,27 +289,36 @@ class RNNDynamicsModel:
         with replacement from the first n_tr of `train` (or path_idx[i]),
         a TBPTT loss and gradient, clip and Adam; then the validation loss.
         train: staged paths (cap, T, d); test: (paths, weights) as `stage`
-        gives them. Returns (params, opt_state, mean train loss, valid
-        loss), the losses 0-d device tensors; nothing here waits for the
-        device. Each step is labelled 'fit.train_step' for
-        torch.profiler."""
+        gives them (with a mesh, this rank's slice; the indices are
+        global). Returns (params, opt_state, mean train loss, valid loss),
+        the losses 0-d device tensors; nothing here waits for the device.
+        Each step is labelled 'fit.train_step' for torch.profiler."""
+        mesh = self.mesh
+        bs = self.batch_size
+        share = par_mesh.batch_share(mesh, bs)
         losses = []
         for i in range(n_batches):
             with record_function('fit.train_step'):
                 idx = (path_idx[i] if path_idx is not None else
-                       torch.randint(0, n_tr, (self.batch_size,),
-                                     generator=generator,
+                       torch.randint(0, n_tr, (bs,), generator=generator,
                                      device=train.device))
+                paths, = par_mesh.take_rows(mesh, (train,), idx)
                 leaves = [p.detach().requires_grad_(True)
                           for p in tree_leaves(params)]
                 with torch.enable_grad():
-                    loss = self.tbptt_loss(tree_unflatten(params, leaves),
-                                           norm, *self._split(train[idx]))
+                    loss = self.tbptt_loss(
+                        tree_unflatten(params, leaves), norm,
+                        *self._split(paths[share])) * (
+                            (share.stop - share.start) / bs)
                     grads = torch.autograd.grad(loss, leaves)
+                *grads, loss = par_mesh.all_reduce_flat(
+                    mesh, list(grads) + [loss.detach()])
                 params, opt_state = self.optimizer.update(
                     tree_unflatten(params, grads), opt_state, params)
-                losses.append(loss.detach())
-        valid = self.valid_loss(params, norm, test)
+                losses.append(loss)
+        num, den = par_mesh.all_reduce_flat(
+            mesh, list(self.valid_terms(params, norm, test)))
+        valid = num / torch.clamp(den, min=1.0)
         return params, opt_state, torch.stack(losses).mean(), valid
 
     @property

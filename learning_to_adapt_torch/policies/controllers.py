@@ -53,6 +53,17 @@ class MPCController(Policy):
                 candidates=candidates, **self._planner_kw())
         return actions
 
+    def draw(self, generator, m, dtype, device):
+        """The planner's random draws for m envs, in the order plan_fn would
+        make them: (candidates, None) for random shooting, (None, normals)
+        for CEM (policies/planners.py)."""
+        n, ha = self.n_candidates, self.horizon * self.act_dim
+        if self.use_cem:
+            return None, planners.draw_normals(
+                generator, self.num_cem_iters, n, m, ha, dtype, device)
+        return planners.draw_candidates(generator, self.horizon, n * m,
+                                        self.act_dim, dtype, device), None
+
     # ---- host API ---------------------------------------------------------
     def _host_generator(self):
         if self._generator is None:

@@ -7,9 +7,12 @@ Candidates use the env-major layout, rows [g*n:(g+1)*n] belong to env g,
 so a per-env-adapted model sees its own env's rows as one contiguous block,
 and a recurrent model's hidden state is fanned out the same way.
 
-Every planner takes its random draws injected for tests: `candidates`, the
-uniform (horizon, n*m, act_dim) actions of random shooting, or `normals`,
-CEM's (num_cem_iters, n, m, horizon*act_dim) standard normals.
+Every planner takes its random draws injected: `candidates`, the uniform
+(horizon, n*m, act_dim) actions of random shooting, or `normals`, CEM's
+(num_cem_iters, n, m, horizon*act_dim) standard normals. The sampler's
+rollout draws them (draw_candidates, draw_normals) for all envs of the mesh
+and passes each rank its envs' share; a planner given none draws its own,
+in the same order.
 """
 from typing import Callable
 
@@ -24,12 +27,28 @@ def _repeat_env_major(x, n):
     return torch.repeat_interleave(x, n, dim=0)
 
 
+def draw_candidates(generator, horizon, rows, act_dim, dtype, device,
+                    act_lo=-1.0, act_hi=1.0):
+    """Random shooting's uniform candidate actions (horizon, rows,
+    act_dim)."""
+    u = torch.rand((horizon, rows, act_dim), generator=generator,
+                   dtype=dtype, device=device)
+    return act_lo + (act_hi - act_lo) * u
+
+
+def draw_normals(generator, num_cem_iters, n, m, ha, dtype, device):
+    """CEM's standard normals (num_cem_iters, n, m, ha), one draw an
+    iteration as the planner makes them."""
+    return torch.stack([torch.randn((n, m, ha), generator=generator,
+                                    dtype=dtype, device=device)
+                        for _ in range(num_cem_iters)])
+
+
 def _uniform_candidates(generator, obs, horizon, rows, act_dim, act_lo,
                         act_hi, candidates):
     if candidates is None:
-        u = torch.rand((horizon, rows, act_dim), generator=generator,
-                       dtype=obs.dtype, device=obs.device)
-        return act_lo + (act_hi - act_lo) * u
+        return draw_candidates(generator, horizon, rows, act_dim, obs.dtype,
+                               obs.device, act_lo, act_hi)
     if tuple(candidates.shape) != (horizon, rows, act_dim):
         raise ValueError(f'candidates shape {tuple(candidates.shape)} != '
                          f'{(horizon, rows, act_dim)}')

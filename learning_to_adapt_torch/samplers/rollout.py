@@ -20,6 +20,14 @@ step for GrBAL (adapted, or the pre-update set broadcast to every env), and
 once per sampling call for MB-MPC, whose weights do not change within it;
 the horizon's predictions reuse the pack.
 
+With a mesh (parallel/mesh.py) each rank steps its share of the envs, the
+rows [r*m/W, (r+1)*m/W) for rank r of W on the 'env' axis, and no step makes
+a collective. Every random draw of a step (the reset and its tasks, the
+random actions, the planner's candidates or normals, the action noise) is
+made for all m envs from the sampler's generator, seeded alike on every
+rank, in the order a 1-rank run makes it; each rank keeps its rows, so the
+W-rank paths are the 1-rank paths.
+
 Each step's parts are labelled for torch.profiler: 'rollout.plan' (with
 'rollout.adapt' inside it once adaptation is on, and 'rollout.pack') and
 'rollout.env_step'; MB-MPC's one pack per call is labelled 'rollout.pack'.
@@ -27,10 +35,12 @@ Each step's parts are labelled for torch.profiler: 'rollout.plan' (with
 import torch
 from torch.profiler import record_function
 
+from learning_to_adapt_torch.envs.base import state_rows
 from learning_to_adapt_torch.models.meta_mlp import MetaMLPDynamicsModel
 from learning_to_adapt_torch.models.mlp import MLPDynamicsModel
 from learning_to_adapt_torch.models.rnn import RNNDynamicsModel
 from learning_to_adapt_torch.ops.fused_mlp import pack_weights
+from learning_to_adapt_torch.parallel import mesh as par_mesh
 
 
 def _segment_len(t_len, target=125):
@@ -44,13 +54,15 @@ def _segment_len(t_len, target=125):
 
 def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
                     max_path_length, adapt_batch_size=None, random=False,
-                    ablate_hidden=None, ablate_warmup=16):
+                    ablate_hidden=None, ablate_warmup=16, mesh=None):
     """Builds the rollout function.
 
     env: NormalizedEnv; policy: MPCController, or RNNMPCController for a
     recurrent model. Returns fn(params, normalizer, generator, episode_idx)
-    -> paths dict of tensors [num_rollouts, T, ...]. fn.init_carry and
-    fn.step_fn are exposed for tests.
+    -> paths dict of tensors [num_rollouts, T, ...], or with `mesh` this
+    rank's share [num_rollouts / W, T, ...] (num_rollouts must divide over
+    the mesh's 'env' axis). fn.init_carry and fn.step_fn are exposed for
+    tests.
 
     ablate_hidden (recurrent models only) isolates ReBAL's adaptation, the
     hidden state's update by each real transition:
@@ -58,7 +70,9 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
       'frozen'  the hidden state advances for the first `ablate_warmup`
                 steps, then stays as it is for the rest of the path
     """
-    m = num_rollouts
+    n_all = num_rollouts
+    rows = par_mesh.shard_rows(mesh, n_all)
+    m = rows.stop - rows.start
     t_len = max_path_length
     seg = _segment_len(t_len)
     n_segments = t_len // seg
@@ -79,7 +93,9 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
     def init_carry(generator, episode_idx):
         """(env states, the GrBAL window (h_obs, h_act) or the recurrent
         model's zero hidden state or None)."""
-        states = env.reset(m, episode_idx, generator)
+        states = env.reset(n_all, episode_idx, generator)
+        if mesh is not None:
+            states = state_rows(states, rows)
         if is_rnn:
             return states, dynamics_model.get_initial_hidden(m)
         hist = None
@@ -136,28 +152,47 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
         return policy.plan_fn(predict, obs, generator, candidates=candidates,
                               normals=normals)
 
+    def draw_rows(generator, like):
+        """The planner's draws for all envs, cut to this rank's envs: the
+        candidate rows are env-major (n_candidates a env), the normals'
+        env axis is their third."""
+        candidates, normals = policy.draw(generator, n_all, **like)
+        if candidates is not None:
+            n = policy.n_candidates
+            return candidates[:, rows.start * n:rows.stop * n], None
+        return None, normals[:, :, rows]
+
     def step_fn(params, norm, carry, t, generator, candidates=None,
                 normals=None):
         """One step at global step t (a host int). candidates / normals:
-        the planner's draws, injected (policies/planners.py). Returns
-        (carry, out)."""
+        the planner's draws for this rank's envs, injected
+        (policies/planners.py), or None to draw them here. Returns (carry,
+        out)."""
         states, aux = carry
         obs_before = states.obs
+        like = dict(dtype=obs_before.dtype, device=obs_before.device)
         with record_function('rollout.plan'):
             if random:
-                u = torch.rand((m, act_dim), generator=generator,
-                               dtype=obs_before.dtype,
-                               device=obs_before.device)
+                u = torch.rand((n_all, act_dim), generator=generator,
+                               **like)[rows]
                 actions = 2.0 * u - 1.0
-            elif is_rnn:
-                actions, aux = plan_recurrent(params, norm, obs_before, aux,
-                                              t, generator, candidates,
-                                              normals)
             else:
-                actions = plan_actions(params, norm, obs_before, aux, t,
-                                       generator, candidates, normals)
+                if candidates is None and normals is None:
+                    candidates, normals = draw_rows(generator, like)
+                if is_rnn:
+                    actions, aux = plan_recurrent(params, norm, obs_before,
+                                                  aux, t, generator,
+                                                  candidates, normals)
+                else:
+                    actions = plan_actions(params, norm, obs_before, aux, t,
+                                           generator, candidates, normals)
+        noise = None
+        if base_env.action_noise > 0:
+            noise = torch.randn((n_all, act_dim), generator=generator,
+                                **like)[rows]
         with record_function('rollout.env_step'):
-            states, obs_after, rewards, dones, _ = env.step(states, actions)
+            states, obs_after, rewards, dones, _ = env.step(states, actions,
+                                                            noise)
         if a_bs:
             h_obs, h_act = aux
             h_obs = torch.cat([h_obs[:, 1:], obs_after[:, None]], dim=1)

@@ -1,6 +1,9 @@
 """Sampler (samplers/sampler.py): collects `num_rollouts` paths of
 `max_path_length` steps per call, all envs batched on one device (every
-env of the batch steps at once).
+env of the batch steps at once). With a mesh (parallel/mesh.py) each rank
+steps its share of the envs on its own device, and one all_gather a call
+brings every path to every rank, so the host-side fit and logging see all
+of them.
 
 Its state (the generator, the episode counter) is tied to the generator's
 device type: a CUDA generator's stream does not continue on the CPU.
@@ -11,6 +14,7 @@ import numpy as np
 import torch
 
 from learning_to_adapt_torch.device import resolve_device
+from learning_to_adapt_torch.parallel import mesh as par_mesh
 from learning_to_adapt_torch.samplers.rollout import make_rollout_fn
 from learning_to_adapt_torch.utils import logging as logger
 
@@ -18,7 +22,7 @@ from learning_to_adapt_torch.utils import logging as logger
 class Sampler:
     def __init__(self, env, policy, num_rollouts, max_path_length,
                  adapt_batch_size=None, seed=0, device='cuda',
-                 ablate_hidden=None, ablate_warmup=16):
+                 ablate_hidden=None, ablate_warmup=16, mesh=None):
         self.env = env
         self.policy = policy
         self.num_rollouts = num_rollouts
@@ -35,6 +39,10 @@ class Sampler:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self._fns = {}
+        # the env axis shards over the mesh's 'env' axis; every rank seeds
+        # its generator alike and draws for all envs (samplers/rollout.py)
+        self.mesh = mesh
+        par_mesh.shard_rows(mesh, num_rollouts)   # raises unless it divides
         #: seconds of the last obtain_samples call, device work included
         self.last_seconds = None
 
@@ -45,7 +53,7 @@ class Sampler:
                 self.num_rollouts, self.max_path_length,
                 adapt_batch_size=self.adapt_batch_size, random=random,
                 ablate_hidden=self.ablate_hidden,
-                ablate_warmup=self.ablate_warmup)
+                ablate_warmup=self.ablate_warmup, mesh=self.mesh)
         return self._fns[random]
 
     def obtain_samples(self, log=False, log_prefix='', random=False):
@@ -55,8 +63,9 @@ class Sampler:
         fn = self._rollout_fn(random)
         paths = fn(model.params, model.normalizer, self._generator,
                    self._episode_idx)
-        # one device-to-host copy per call, after the whole rollout
-        paths = {k: v.cpu().numpy() for k, v in paths.items()}
+        # one device-to-host copy per call, after the whole rollout (with
+        # a mesh, of every rank's paths after one all_gather)
+        paths = par_mesh.gather(self.mesh, paths)
         self.last_seconds = time.time() - t0
         self._episode_idx += 1
         self.total_timesteps_sampled += self.total_samples
