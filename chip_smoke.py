@@ -4,8 +4,10 @@
 
 Phases, each of which raises (exit code != 0) on failure:
   1. print the card (nvidia-smi name, power limit); build both CUDA kernels
-     from learning_to_adapt_torch/csrc with nvcc for sm_90a, and the Jacobi
-     kernel's handshake-only variant (jacobi_study.py), in parallel;
+     from learning_to_adapt_torch/csrc with nvcc for sm_90a, and the floor
+     variants of the Jacobi kernels' sweep chains (jacobi_study.py: the
+     tiers' handshake only, the cluster kernel's two paths without row
+     products), in parallel;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes, with the tolerance printed, and time kernel, plain
      version and (for the MLP) one library call with CUDA events, the host
@@ -74,15 +76,22 @@ Phases, each of which raises (exit code != 0) on failure:
      iteration 16: 128 steps an epoch) and 11. the ReBAL fit's on 68 train
      paths x 1000 steps (8 steps of 10 TBPTT chunks an epoch), each as in
      phase 7;
- 12. the cluster Jacobi kernel (N > 224), in the kernel phase: held
-     against the plain version on real HalfCheetahBlocksEnv contact
-     systems (5 envs x 988 rows after 30 random-action steps) and on
-     random SPD systems at N = 225, 988, 1024 and 2048 for 1 and 5 envs
-     and at N = 988 for 512 envs; its cluster shape printed; CUDA-event
-     and device time, the plain version's, the bound, and the floor of its
-     sweep chain (jacobi_study.py's barrier-only variant) at 5 and 512
-     envs. The MLP kernel is also held and timed at the arm's widths (5 x
-     500 rows, 30->512x3->23) beside the bf16 baddbmm chain;
+ 12. the cluster Jacobi kernel (N > 224), in the kernel phase: its plan
+     printed (cluster size, rows held in shared memory and in registers,
+     occupancy); held against the plain version, one launch each, dead
+     rows exactly 0 and live rows an env printed, on real
+     HalfCheetahBlocksEnv contact systems (5 envs x 988 rows after 30
+     random-action steps), random SPD systems at N = 225, 988, 1024 and
+     2048 for 1 and 5 envs and at N = 988 for 512 envs, and systems built
+     as the engine leaves inactive contacts (jacobi_study.dead_system: 90 %
+     and 99 % of 988 rows dead at 5 and 512 envs, 224 and 225 live, none
+     live, a non-symmetric A); CUDA-event and device times on the blocks
+     systems (warm and with L2 flushed), dense 5 x 988, dense 512 x 988
+     and 99 %-dead 512 x 988, beside the plain version, the bound (one
+     read of A against the live rows' operations) and the floors of the
+     one-block and dense chains. The MLP kernel is also held and timed at
+     the arm's widths (5 x 500 rows, 30->512x3->23) beside the bf16
+     baddbmm chain;
  13. the new envs: run_grbal from its command line (--env, --task) for
      HalfCheetahHFieldEnv --task hfield, HalfCheetahBlocksEnv --task
      damping and Arm7DofEnv --task force, full width, seed 0, paths of
@@ -398,13 +407,14 @@ def bound_ms(n_bytes, flops, peak_flops):
 def build_kernels():
     """Build both kernel sources and the Jacobi kernels' floor variants
     (one nvcc each, all at once); returns the variants' libraries (tiers,
-    cluster)."""
+    the cluster kernel's one-block path, its dense path)."""
     import jacobi_study
     from learning_to_adapt_torch.ops import build
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         floors = [pool.submit(jacobi_study.compile_variant, name) for name
-                  in (jacobi_study.FLOOR, jacobi_study.CLUSTER_FLOOR)]
+                  in (jacobi_study.FLOOR, jacobi_study.SMALL_FLOOR,
+                      jacobi_study.DENSE_FLOOR)]
         paths = list(pool.map(build.build, ['fused_mlp', 'jacobi']))
         floors = [f.result() for f in floors]
     log(f'built {[p.name for p in paths + [f[1] for f in floors]]} in '
@@ -575,47 +585,11 @@ def check_fused_mlp_mb_mpc(dev):
                 mb_mpc_library_device_ms=library_device_ms)
 
 
-def contact_systems(dev, cls_name='HalfCheetahEnv', task='cripple'):
-    """The Jacobi inputs of one real physics step of an env for 5 envs,
-    taken after 30 random-action steps (HalfCheetah's feet on the floor,
-    or on the blocks), the task drawn (episode 1)."""
-    import torch
-    from learning_to_adapt_torch import envs
-    from learning_to_adapt_torch.physics import engine
-    env = envs.normalize(getattr(envs, cls_name)(
-        task=task, reset_every_episode=True, device=dev))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    state = env.reset(N_ENVS, 1, gen)
-
-    def random_step(state):
-        act = 2 * torch.rand((N_ENVS, env.act_dim), generator=gen,
-                             device=dev) - 1
-        return env.step(state, act)[0]
-
-    for _ in range(30):
-        state = random_step(state)
-    captured = []
-    solve = engine.jacobi_solve
-
-    def capture(*args):
-        captured.append(tuple(a.clone() if torch.is_tensor(a) else a
-                              for a in args))
-        return solve(*args)
-
-    engine.jacobi_solve = capture
-    try:
-        random_step(state)
-    finally:
-        engine.jacobi_solve = solve
-    return captured[0]
-
-
 def check_jacobi(dev, floor_lib):
     import torch
     import jacobi_study
     from learning_to_adapt_torch.ops import jacobi as jc
-    A, b, ainv, omega, n_sweeps = contact_systems(dev)
+    A, b, ainv, omega, n_sweeps = jacobi_study.contact_systems(dev)
     n = A.shape[-1]
     n_active = int((b != 0).sum())
     per_row, cols, rows, threads = jc.launch_shape(n)
@@ -685,8 +659,10 @@ def check_jacobi_ant(dev):
     with L2 flushed, and by profiler device time. Returns the keys it adds
     to the jacobi_solve entry."""
     import torch
+    import jacobi_study
     from learning_to_adapt_torch.ops import jacobi as jc
-    A, b, ainv, omega, n_sweeps = contact_systems(dev, 'AntEnv', 'cripple')
+    A, b, ainv, omega, n_sweeps = jacobi_study.contact_systems(
+        dev, 'AntEnv', 'cripple')
     n = A.shape[-1]
     n_active = int((b != 0).sum())
     per_row, cols, rows, threads = jc.launch_shape(n)
@@ -727,33 +703,48 @@ def check_jacobi_ant(dev):
                 ant_bound_ms=b_ms, ant_rows=n)
 
 
-def check_jacobi_cluster(dev, floor_lib):
-    """The cluster kernel (N > 224): on real blocks contact systems, on
-    random SPD systems from N = 225 to 2048 at 1 and 5 envs and at N = 988
-    for 512 envs; timed at the blocks shape for 5 and 512 envs beside the
-    plain version, the bound and the floor of its sweep chain."""
+def cluster_bound_ms(A, b, live, n_sweeps):
+    """The least time of a cluster solve: the larger of one read of A, b,
+    aii_inv and omega and one write of f at the card's memory rate, and the
+    sweeps over each env's live rows (2 m + 5 operations a row a sweep for m
+    live rows) at its f32 rate: what these inputs need, so a kernel that
+    skips the dead rows never reads above it."""
+    m = live.sum(-1).double()
+    n_bytes = 4 * (A.numel() + 3 * b.numel() + b.shape[0])
+    flops = float((n_sweeps * m * (2 * m + 5)).sum())
+    return bound_ms(n_bytes, flops, F32_FLOP_PER_S) + (n_bytes, flops)
+
+
+def check_jacobi_cluster(dev, small_floor_lib, dense_floor_lib):
+    """The cluster kernel (N > 224): held against the plain version on real
+    blocks contact systems, random SPD systems (every row live) from N =
+    225 to 2048 at 1 and 5 envs and at N = 988 for 512 envs, and systems
+    built as the engine leaves inactive contacts (90 % and 99 % dead at 5
+    and 512 envs, 224 and 225 live rows, none live, a non-symmetric A), one
+    launch each, dead rows exactly 0; timed (CUDA events and profiler
+    device time) on the blocks systems warm and with L2 flushed, dense 5 x
+    988, dense 512 x 988 and 99 %-dead 512 x 988, beside the plain version,
+    the bound and the floors of its two paths' sweep chains."""
     import torch
     import jacobi_study
     from learning_to_adapt_torch.ops import jacobi as jc
-    A, b, ainv, omega, n_sweeps = contact_systems(
+    A, b, ainv, omega, n_sweeps = jacobi_study.contact_systems(
         dev, 'HalfCheetahBlocksEnv', 'damping')
     n = A.shape[-1]
-    n_active = int((b != 0).sum())
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for envs in (N_ENVS, JACOBI_WIDE_ENVS):
-        cluster, threads, rows, smem = jc.cluster_shape(n, envs, sms)
-        log(f'jacobi cluster shape, {envs} envs x N = {n}: {envs} clusters '
-            f'of {cluster} blocks x {threads} threads ({rows} rows of A per '
-            f'block, {smem} bytes of shared memory); the card holds '
-            f'{jc.cluster_occupancy(n, cluster, 4, dev)} such clusters at '
-            f'once ({sms} SMs)')
-    log(f'jacobi: HalfCheetahBlocksEnv contact systems {tuple(A.shape)}, '
-        f'{n_sweeps} sweeps, {n_active} active rows over {N_ENVS} envs, '
-        f'omega {[round(float(w), 4) for w in omega]}')
-    if n != BLOCKS_ROWS or n_sweeps != JACOBI_SWEEPS or n_active == 0:
-        raise AssertionError(f'expected {BLOCKS_ROWS} rows, 60 sweeps and '
-                             'an active contact set')
-    cases = [('blocks contact', (A, b, ainv, omega))]
+    cluster = jc.cluster_size(n, dev)
+    plan = jc.cluster_shape(n, cluster)
+    log(f'jacobi cluster plan, N = {n}: clusters of {cluster} blocks x '
+        f'{plan.threads} threads (16 where the card holds one: '
+        f'{jc.cluster_occupancy(n, 16, dev)} clusters of 16 at once, '
+        f'{jc.cluster_occupancy(n, 8, dev)} of 8), {plan.rows} rows scanned '
+        f'a block, {plan.held} held in shared memory, {plan.in_registers} in '
+        f'registers and {plan.streamed} streamed when every row is live, up '
+        f'to {plan.small} live rows in one block, {plan.smem} bytes of '
+        'shared memory a block')
+    if n != BLOCKS_ROWS or n_sweeps != JACOBI_SWEEPS:
+        raise AssertionError(f'expected {BLOCKS_ROWS} rows and 60 sweeps')
+    blocks = (A, b, ainv, omega)
+    cases = [('blocks contact', blocks)]
     for rows_n in CLUSTER_NS:
         for envs in CLUSTER_ENVS:
             cases.append((f'random SPD {envs} x {rows_n}',
@@ -761,61 +752,113 @@ def check_jacobi_cluster(dev, floor_lib):
                                               seed=rows_n + envs)))
     wide = jacobi_study.system(dev, JACOBI_WIDE_ENVS, n, seed=3)
     cases.append((f'random SPD {JACOBI_WIDE_ENVS} x {n}', wide))
-    errs = []
+    dead = {}
+    for envs, n_live, symmetric in (
+            (N_ENVS, 99, True), (N_ENVS, 10, True),
+            (JACOBI_WIDE_ENVS, 99, True), (JACOBI_WIDE_ENVS, 10, True),
+            (N_ENVS, 224, True), (N_ENVS, 225, True), (N_ENVS, 0, True),
+            (N_ENVS, 99, False)):
+        label = (f'{n_live} of {n} rows live, {envs} envs' +
+                 ('' if symmetric else ', A not symmetric'))
+        dead[(envs, n_live, symmetric)] = jacobi_study.dead_system(
+            dev, envs, n, n_live, seed=n_live + envs, symmetric=symmetric)
+        cases.append((label, dead[(envs, n_live, symmetric)]))
+    errs, n_live_blocks = [], None
     for label, args in cases:
+        live = jc.live_rows(*args)
+        counts = live.sum(-1).tolist()
         before = jc.jacobi_solve_cluster.launches
         out = jc.jacobi_solve_cuda(*args, n_sweeps)
         ref = jc.jacobi_solve_plain(*args, n_sweeps)
         torch.cuda.synchronize()
         if jc.jacobi_solve_cluster.launches != before + 1:
-            raise AssertionError(f'{label}: not the cluster kernel')
+            raise AssertionError(f'{label}: not one cluster kernel launch')
         err = float((out - ref).abs().max())
         errs.append(err)
-        log(f'jacobi cluster {label}: max_abs_err {err:.3e} (tolerance '
-            f'{JACOBI_TOL}, max|ref| {float(ref.abs().max()):.3e})')
+        shown = counts if len(counts) <= N_ENVS else \
+            f'{min(counts)}-{max(counts)}'
+        log(f'jacobi cluster {label}: live rows an env {shown}; max_abs_err '
+            f'{err:.3e} (tolerance {JACOBI_TOL}, max|ref| '
+            f'{float(ref.abs().max()):.3e})')
         torch.testing.assert_close(out, ref, **JACOBI_TOL)
         if not bool((out >= 0).all()):
             raise AssertionError('projected Jacobi returned a negative force')
+        if not bool((out[~live] == 0).all()):
+            raise AssertionError(f'{label}: a dead row is not exactly 0')
+        if label == 'blocks contact':
+            n_live_blocks = counts
+    if not 0 < max(n_live_blocks) <= plan.small:
+        raise AssertionError(f'blocks contact systems: {n_live_blocks} live '
+                             'rows an env, expected the one-block path')
 
-    def kernel(args=(A, b, ainv, omega)):
+    def kernel(args=blocks):
         return jc.jacobi_solve_cluster(*args, n_sweeps)
+    flush = torch.empty(16 * 2 ** 20, device=dev)  # 64 MB > the 50 MB L2
+    dead512 = dead[(JACOBI_WIDE_ENVS, 10, True)]
+    dense5 = dict(cases)[f'random SPD {N_ENVS} x {n}']
     ms = cuda_ms(kernel)
+    ms_cold = cuda_ms(kernel, iters=20, before=flush.zero_)
     dev_ms = device_ms(kernel)
+    plain_ms = cuda_ms(lambda: jc.jacobi_solve_plain(*blocks, n_sweeps))
+    dense_ms = cuda_ms(lambda: kernel(dense5))
+    dense_dev_ms = device_ms(lambda: kernel(dense5))
     ms_512 = cuda_ms(lambda: kernel(wide), warmup=2, iters=5)
     dev_ms_512 = device_ms(lambda: kernel(wide), iters=3)
-    plain_ms = cuda_ms(lambda: jc.jacobi_solve_plain(A, b, ainv, omega,
-                                                     n_sweeps))
+    dead_ms = cuda_ms(lambda: kernel(dead512), warmup=2, iters=10)
+    dead_dev_ms = device_ms(lambda: kernel(dead512), iters=5)
 
-    def floor_device_ms(args, iters):
+    def floor_device_ms(name, lib, args, iters):
         return jacobi_study.run_variant(
-            jacobi_study.CLUSTER_FLOOR,
-            {jacobi_study.CLUSTER_FLOOR: floor_lib},
+            name, {name: lib},
             lambda: device_ms(lambda: kernel(args), iters=iters))
-    floor_ms = floor_device_ms((A, b, ainv, omega), 20)
-    floor_ms_512 = floor_device_ms(wide, 3)
-    n_bytes = 4 * (A.numel() + 3 * b.numel() + omega.numel())
-    flops = n_sweeps * N_ENVS * n * (2 * n + 5)
-    b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
-    bytes_ms, _ = bound_ms(n_bytes, 0, F32_FLOP_PER_S)
-    log(f'jacobi cluster per launch, {N_ENVS} envs x {n} rows: kernel '
-        f'{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, '
-        f'bound {b_ms:.4f} ms ({b_by}: {flops / 1e6:.0f} MFLOP at 67 TFLOP/s;'
-        f' bytes {bytes_ms:.4f} ms for {n_bytes / 1e6:.1f} MB); floor of the '
-        f'chain of {n_sweeps} dependent sweeps (gather and cluster barrier '
-        f'only, device) {floor_ms:.4f} ms, kernel/floor '
-        f'{dev_ms / floor_ms:.2f}; L2 reads of A '
-        f'{n_sweeps * A.numel() * 4 / dev_ms / 1e6:.0f} GB/s')
-    log(f'jacobi cluster per launch, {JACOBI_WIDE_ENVS} envs x {n} rows: '
-        f'kernel {ms_512:.4f} ms (device {dev_ms_512:.4f} ms), floor '
-        f'(device) {floor_ms_512:.4f} ms')
+    floor_ms = floor_device_ms(jacobi_study.SMALL_FLOOR, small_floor_lib,
+                               blocks, 20)
+    dense_floor_ms = floor_device_ms(jacobi_study.DENSE_FLOOR,
+                                     dense_floor_lib, dense5, 20)
+    floor_ms_512 = floor_device_ms(jacobi_study.DENSE_FLOOR, dense_floor_lib,
+                                   wide, 3)
+    bounds = {}
+    for key, args in (('blocks', blocks), ('dense', dense5),
+                      ('dense_512', wide), ('dead_512', dead512)):
+        bounds[key] = cluster_bound_ms(args[0], args[1],
+                                       jc.live_rows(*args), n_sweeps)
+    b_ms, b_by, n_bytes, flops = bounds['blocks']
+    log(f'jacobi cluster per launch, blocks contact {N_ENVS} x {n} '
+        f'({n_live_blocks} live rows an env): kernel {ms:.4f} ms, L2 flushed '
+        f'{ms_cold:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} '
+        f'ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB read once; '
+        f'{flops / 1e6:.3f} MFLOP over the live rows), floor of the one-block '
+        f'chain of {n_sweeps} sweeps (no row products, device) '
+        f'{floor_ms:.4f} ms, kernel/floor {dev_ms / floor_ms:.2f}, '
+        f'kernel/bound {dev_ms / b_ms:.2f}')
+    for what, k_ms, k_dev, fl, key in (
+            (f'dense {N_ENVS} x {n}', dense_ms, dense_dev_ms, dense_floor_ms,
+             'dense'),
+            (f'dense {JACOBI_WIDE_ENVS} x {n}', ms_512, dev_ms_512,
+             floor_ms_512, 'dense_512'),
+            (f'99 % dead {JACOBI_WIDE_ENVS} x {n}', dead_ms, dead_dev_ms,
+             None, 'dead_512')):
+        k_b, k_by, k_bytes, k_flops = bounds[key]
+        log(f'jacobi cluster per launch, {what}: kernel {k_ms:.4f} ms '
+            f'(device {k_dev:.4f} ms), bound {k_b:.4f} ms ({k_by}: '
+            f'{k_bytes / 1e6:.1f} MB, {k_flops / 1e6:.1f} MFLOP), '
+            f'kernel/bound {k_dev / k_b:.2f}' +
+            ('' if fl is None else f', floor of the dense chain (device) '
+             f'{fl:.4f} ms, kernel/floor {k_dev / fl:.2f}'))
     return dict(name='jacobi_solve_cluster', route='cuda',
                 source='learning_to_adapt_torch/csrc/jacobi.cu',
                 replaces='learning_to_adapt_tpu/ops/pallas_jacobi.py:73',
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_cold=None,
-                library_device_ms=None, device_ms=dev_ms, floor_ms=floor_ms,
-                ms_512=ms_512, device_ms_512=dev_ms_512,
-                floor_ms_512=floor_ms_512)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                ms_cold=ms_cold, library_device_ms=None, device_ms=dev_ms,
+                floor_ms=floor_ms, ms_512=ms_512, device_ms_512=dev_ms_512,
+                floor_ms_512=floor_ms_512, n_live=n_live_blocks,
+                dense_ms=dense_ms, dense_device_ms=dense_dev_ms,
+                dense_floor_ms=dense_floor_ms,
+                dense_bound_ms=bounds['dense'][0],
+                bound_ms_512=bounds['dense_512'][0],
+                dead_512_ms=dead_ms, dead_512_device_ms=dead_dev_ms,
+                dead_512_bound_ms=bounds['dead_512'][0])
 
 
 def main_path(dev, card):
@@ -2183,9 +2226,9 @@ def main():
     def stamp(what):
         log(f'elapsed {time.time() - t_start:.1f} s: {what}')
 
-    floor_lib, cluster_floor_lib = build_kernels()
+    floor_lib, small_floor_lib, dense_floor_lib = build_kernels()
     kernels = [check_fused_mlp(dev), check_jacobi(dev, floor_lib),
-               check_jacobi_cluster(dev, cluster_floor_lib)]
+               check_jacobi_cluster(dev, small_floor_lib, dense_floor_lib)]
     kernels[0].update(check_fused_mlp_mb_mpc(dev))
     kernels[0].update(check_fused_mlp_arm(dev))
     kernels[0].update(check_fused_mlp_ant(dev))
@@ -2258,7 +2301,10 @@ def main():
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'ms_cold',
             'library_device_ms', 'device_ms', 'floor_ms', 'ms_512',
-            'device_ms_512', 'floor_ms_512',
+            'device_ms_512', 'floor_ms_512', 'n_live', 'dense_ms',
+            'dense_device_ms', 'dense_floor_ms', 'dense_bound_ms',
+            'bound_ms_512', 'dead_512_ms', 'dead_512_device_ms',
+            'dead_512_bound_ms',
             'trainer_launches', 'mb_mpc_launches', 'rebal_launches',
             'mb_mpc_trainer_launches', 'rebal_trainer_launches',
             'hfield_launches', 'blocks_launches', 'arm_launches',

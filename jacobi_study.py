@@ -27,26 +27,48 @@ sampling width), by the kernel's own device time in a torch.profiler window:
                   where named; each also with no row products (`_handshake`,
                   the chain floor of that launch shape)
 
-The cluster kernel (N > 224) is timed at the blocks env's N = 988 for 5
-and 512 envs, as it is (`kept`) and as:
+The cluster kernel (N > 224) is timed at the blocks env's N = 988 on four
+systems: the blocks env's contact systems (5 envs, ~4 live rows an env),
+random SPD systems (every row live) for 5 and 512 envs, and structured
+systems with 99 % of the rows dead for 512 envs; as it is (`kept`) and as:
 
-  cluster_barrier_only  no rows of A: each sweep still gathers f from the
-                  cluster's blocks, sums across a warp, writes the new f and
-                  meets the cluster barrier (the floor of its sweep chain)
-  cluster_unroll8 eight 16-byte loads of a row in flight per lane, not four
-  cluster_pairs   two rows a warp at a time (their loads interleaved), and
-  cluster_pairs8  with eight loads of each in flight
-  cluster_c8      clusters of 8 blocks at 5 envs too (the kept launch takes
-                  16 while every env's cluster fits the card at once)
+  cluster_small_floor   the one-block path with no row products: each
+                  sweep still reads f, sums across a row's lanes, writes the
+                  new f and meets the block barrier (the floor of that
+                  path's chain)
+  cluster_dense_floor   the dense path with no row products: each sweep
+                  still sums across a warp, pushes the new f to every block
+                  of the cluster and waits for the whole f on its mbarrier
+                  (the floor of that path's chain)
+  cluster_dense   every row taken as live, so the blocks systems run the
+                  dense path (the design without the live-row scan), and
+  cluster_dense_floor_all  that path's floor on them
+  cluster_barrier the dense path's f pushed by plain stores to distributed
+                  shared memory and one cluster barrier a sweep, instead
+                  of st.async stores that complete on each block's
+                  mbarrier, and
+  cluster_barrier_floor  that path's floor
+  cluster_no_bulk the scan reads every row by plain 16-byte loads (no
+                  bulk copies into shared memory; the dense path gathers
+                  its held rows from L2 after the scan), and
+  cluster_no_bulk_scan_only  the same for 0 sweeps
+  cluster_c8      clusters of 8 blocks (the kept launch takes 16 where the
+                  card holds a cluster of 16)
+  cluster_streamed  no rows of A held on chip: every row streamed from L2
+                  each sweep (the kept plan holds 55 of a block's 62 rows
+                  at N = 988 in shared memory and 7 in registers)
+  cluster_shared_only  no rows in registers: those beyond shared memory
+                  streamed
+  cluster_scan_only  launched for 0 sweeps: the scan, the live list and
+                  the set-up of either path
 
 Variants that change the arithmetic (handshake_only, no_barrier,
-prologue_only, cluster_barrier_only) compute wrong results and are timed
-only. The substitutions
-match the kernel's text exactly, so an edit of a line they match makes this
-script raise until they follow it. Prints the card (name, power limit)
-first, then per variant the registers and spills of the instantiation it
-launches and its counts of shared loads, shuffles, FMAs and barriers in the
-SASS, then one line per variant and env count.
+prologue_only and the floors) compute wrong results and are timed only.
+The substitutions match the kernel's text exactly, so an edit of a line
+they match makes this script raise until they follow it. Prints the card
+(name, power limit) first, then per variant the registers and spills of
+the instantiation it launches and its counts of shared loads, shuffles,
+FMAs and barriers in the SASS, then one line per variant and system.
 """
 import ctypes
 import re
@@ -68,83 +90,43 @@ _PRODUCT = ('''#pragma unroll
 ''', '''      acc[0] = fv[r % kCols];
 ''')
 _BARRIER = ('    __syncthreads();\n    cur ^= 1;', '    cur ^= 1;')
-_UNROLL8 = ('#pragma unroll 4\n    for (int k = lane; k < n / 4; k += 32) {',
-            '#pragma unroll 8\n    for (int k = lane; k < n / 4; k += 32) {')
-_PAIR_DOT = ('// Dynamic shared memory: f_all[n]', """// Two rows at once.
-template <int kVec>
-__device__ __forceinline__ float2 row_dot2(const float* __restrict__ A0,
-                                           const float* __restrict__ A1,
-                                           const float* f, int n, int lane) {
-  float a0 = 0.f, a1 = 0.f, c0 = 0.f, c1 = 0.f;
-  if constexpr (kVec == 4) {
-    const float4* p4 = reinterpret_cast<const float4*>(A0);
-    const float4* q4 = reinterpret_cast<const float4*>(A1);
-    const float4* f4 = reinterpret_cast<const float4*>(f);
-#pragma unroll 4
-    for (int k = lane; k < n / 4; k += 32) {
-      const float4 p = __ldcg(p4 + k);
-      const float4 q = __ldcg(q4 + k);
-      const float4 x = f4[k];
-      a0 = fmaf(p.x, x.x, a0);
-      a1 = fmaf(p.y, x.y, a1);
-      a0 = fmaf(p.z, x.z, a0);
-      a1 = fmaf(p.w, x.w, a1);
-      c0 = fmaf(q.x, x.x, c0);
-      c1 = fmaf(q.y, x.y, c1);
-      c0 = fmaf(q.z, x.z, c0);
-      c1 = fmaf(q.w, x.w, c1);
+_SMALL_PRODUCT = ('''        if (r < m)
+          for (int k = part; k < m; k += G)
+            sum = fmaf(As[r * ld + k], fc[k], sum);
+''', '''        if (r < m) sum = fc[r];
+''')
+_DENSE_PRODUCT = ('''    for (int i = warp; i < hd; i += 2 * n_warps) {
+      const int i2 = i + n_warps;
+      if (i2 < hd) {
+        const float2 s2 = dot_held2(Ah + static_cast<size_t>(i) * n4,
+                                    Ah + static_cast<size_t>(i2) * n4, fc,
+                                    m4, lane);
+        finish(i, s2.x);
+        finish(i2, s2.y);
+      } else {
+        finish(i, dot_held(Ah + static_cast<size_t>(i) * n4, fc, m4, lane));
+      }
     }
-  } else {
-#pragma unroll 4
-    for (int k = lane; k < n; k += 32) {
-      a0 = fmaf(__ldcg(A0 + k), f[k], a0);
-      c0 = fmaf(__ldcg(A1 + k), f[k], c0);
-    }
-  }
-  return make_float2(a0 + a1, c0 + c1);
-}
-
-// Dynamic shared memory: f_all[n]""")
-_PAIR_LOOP = ("""    for (int r = warp; r < mine; r += n_warps) {
-      const int row = row0 + r;
-      const float* Ar = Ae + static_cast<size_t>(row) * n;
-      float sum = row_dot<kVec>(Ar, f_all, n, lane);
-#pragma unroll
-      for (int m = 16; m > 0; m /= 2) sum += __shfl_xor_sync(kFull, sum, m);
-      if (lane == 0) {
-        const size_t idx = static_cast<size_t>(e) * n + row;
-        const float f_old = slice[cur * rows + r];
-        slice[(cur ^ 1) * rows + r] = fmaxf(
-            f_old - w * (sum + __ldg(b + idx)) * __ldg(aii_inv + idx), 0.f);
-      }
-    }""", """    for (int r = warp; r < mine; r += 2 * n_warps) {
-      const int rr[2] = {r, min(r + n_warps, mine - 1)};
-      float2 s2 = row_dot2<kVec>(Ae + static_cast<size_t>(row0 + rr[0]) * n,
-                                 Ae + static_cast<size_t>(row0 + rr[1]) * n,
-                                 f_all, n, lane);
-#pragma unroll
-      for (int m = 16; m > 0; m /= 2) {
-        s2.x += __shfl_xor_sync(kFull, s2.x, m);
-        s2.y += __shfl_xor_sync(kFull, s2.y, m);
-      }
-      const float sums[2] = {s2.x, s2.y};
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (lane == 0 && (j == 0 || r + n_warps < mine)) {
-          const size_t idx = static_cast<size_t>(e) * n + row0 + rr[j];
-          const float f_old = slice[cur * rows + rr[j]];
-          slice[(cur ^ 1) * rows + rr[j]] = fmaxf(
-              f_old - w * (sums[j] + __ldg(b + idx)) * __ldg(aii_inv + idx),
-              0.f);
-        }
-      }
-    }""")
-_PAIR_UNROLL8 = ('#pragma unroll 4\n    for (int k = lane; k < n / 4; '
-                 'k += 32) {\n      const float4 p',
-                 '#pragma unroll 8\n    for (int k = lane; k < n / 4; '
-                 'k += 32) {\n      const float4 p')
-_ROW_DOT = ('      float sum = row_dot<kVec>(Ar, f_all, n, lane);',
-            '      float sum = f_all[row];')
+    if (has_reg) finish(hd + warp, dot_registers(areg, fc, m4, lane));
+    for (int i = hd + rg + warp; i < mo; i += n_warps)
+      finish(i, dot_streamed(Ae + static_cast<size_t>(L[c0 + i]) * n, L, fc,
+                             m, lane));
+''', '''    for (int i = warp; i < mo; i += n_warps) finish(i, fc[c0 + i]);
+''')
+_ALL_LIVE = ('flag[i] = nonzero || bj != 0.f;', 'flag[i] = 1;')
+_NO_BULK = [
+    ('  const int staged = bulk ? min(held, mine) : 0;',
+     '  const int staged = 0;'),
+    ('  const bool as_scanned = bulk && m == n;',
+     '  const bool as_scanned = false;')]
+_CLUSTER_BARRIER = [
+    ('      if (lane < C) push(f_peer + 4 * (nxt * n4 + c), v, bar_peer + 8 * '
+     'nxt);',
+     '      if (lane < C) *cluster.map_shared_rank(fbuf + nxt * n4 + c, '
+     'lane) = v;'),
+    ('    if (tid == 0) mbar_expect_tx(bar + 16 + 8 * nxt, 4 * m);\n', ''),
+    ('    mbar_wait(bar + 16 + 8 * nxt, (s >> 1) & 1);  // all m values of f',
+     '    cluster.sync();')]
 _COLUMN = '  return part + kT * k;'
 _CONTIGUOUS = (_COLUMN, '  return part * kCols + k;')
 _QUADS = (_COLUMN, '  return 4 * part + 4 * kT * (k / 4) + k % 4;')
@@ -182,20 +164,33 @@ VARIANTS = {
        for name, (shape, subs) in SHAPES.items()},
     **{f'{name}_handshake': _tier(*shape, subs=subs + [_PRODUCT])
        for name, (shape, subs) in SHAPES.items()},
-    'cluster_barrier_only': ([_ROW_DOT], SWEEPS, jc.TIERS),
-    'cluster_unroll8': ([_UNROLL8], SWEEPS, jc.TIERS),
-    'cluster_pairs': ([_PAIR_DOT, _PAIR_LOOP], SWEEPS, jc.TIERS),
-    'cluster_pairs8': ([_PAIR_DOT, _PAIR_LOOP, _PAIR_UNROLL8], SWEEPS,
-                       jc.TIERS),
+    'cluster_small_floor': ([_SMALL_PRODUCT], SWEEPS, jc.TIERS),
+    'cluster_dense_floor': ([_DENSE_PRODUCT], SWEEPS, jc.TIERS),
+    'cluster_dense': ([_ALL_LIVE], SWEEPS, jc.TIERS),
+    'cluster_dense_floor_all': ([_ALL_LIVE, _DENSE_PRODUCT], SWEEPS,
+                                jc.TIERS),
+    'cluster_barrier': (_CLUSTER_BARRIER, SWEEPS, jc.TIERS),
+    'cluster_barrier_floor': (_CLUSTER_BARRIER + [_DENSE_PRODUCT], SWEEPS,
+                              jc.TIERS),
+    'cluster_no_bulk': (_NO_BULK, SWEEPS, jc.TIERS),
+    'cluster_no_bulk_scan_only': (_NO_BULK, 0, jc.TIERS),
     'cluster_c8': ([], SWEEPS, jc.TIERS),
+    'cluster_streamed': ([], SWEEPS, jc.TIERS),
+    'cluster_shared_only': ([], SWEEPS, jc.TIERS),
+    'cluster_scan_only': ([], 0, jc.TIERS),
 }
 #: the variant whose time is the floor of the sweep chain
 FLOOR = 'handshake_only'
-#: the same for the cluster kernel
-CLUSTER_FLOOR = 'cluster_barrier_only'
+#: the same for the cluster kernel's one-block path (few live rows) and
+#: its dense path
+SMALL_FLOOR, DENSE_FLOOR = 'cluster_small_floor', 'cluster_dense_floor'
 #: variants timed through the cluster kernel at N_CLUSTER rows
-CLUSTER_VARIANTS = ('kept', CLUSTER_FLOOR, 'cluster_unroll8',
-                    'cluster_pairs', 'cluster_pairs8', 'cluster_c8')
+CLUSTER_VARIANTS = ('kept', 'cluster_scan_only', SMALL_FLOOR, DENSE_FLOOR,
+                    'cluster_dense', 'cluster_dense_floor_all',
+                    'cluster_barrier', 'cluster_barrier_floor',
+                    'cluster_no_bulk', 'cluster_no_bulk_scan_only',
+                    'cluster_c8',
+                    'cluster_streamed', 'cluster_shared_only')
 
 
 def variant_source(name):
@@ -203,7 +198,7 @@ def variant_source(name):
     for old, new in VARIANTS[name][0]:
         if old not in text:
             raise RuntimeError(f'study: source changed, no {old[:50]!r}')
-        text = text.replace(old, new)
+        text = text.replace(old, new)  # every occurrence
     return text
 
 
@@ -221,10 +216,21 @@ def compile_variant(name):
 
 
 def run_variant(name, libs, fn):
-    """Call fn() with the kernel wrapper bound to variant `name`'s build
-    and tiers; restores both."""
+    """Call fn() with the kernel wrapper bound to variant `name`'s build,
+    tiers and cluster plan (clusters of 8 for cluster_c8, no held rows for
+    cluster_streamed); restores them."""
     lib, tiers = build._LIBS.get('jacobi'), jc.TIERS
+    size, shape = jc.cluster_size, jc.cluster_shape
     build._LIBS['jacobi'], jc.TIERS = libs[name], VARIANTS[name][2]
+    if name == 'cluster_c8':
+        jc.cluster_size = lambda n, device: 8
+    elif name in ('cluster_streamed', 'cluster_shared_only'):
+        def streamed(n, cluster=16):
+            plan = shape(n, cluster)
+            held = 0 if name == 'cluster_streamed' else plan.held
+            return plan._replace(held=held, in_registers=0,
+                                 streamed=plan.rows - held)
+        jc.cluster_shape = streamed
     try:
         return fn()
     finally:
@@ -232,6 +238,7 @@ def run_variant(name, libs, fn):
         if lib is not None:
             build._LIBS['jacobi'] = lib
         jc.TIERS = tiers
+        jc.cluster_size, jc.cluster_shape = size, shape
 
 
 def system(dev, n_envs, n, seed):
@@ -244,6 +251,76 @@ def system(dev, n_envs, n, seed):
     aii_inv = 1.0 / torch.diagonal(a, dim1=-2, dim2=-1)
     rho = torch.amax(a.abs().sum(-1) * aii_inv, dim=-1)
     return a, b, aii_inv, torch.clamp(1.8 / rho, max=1.0)
+
+
+def dead_system(dev, n_envs, n, n_live, seed, symmetric=True):
+    """Random SPD systems (as `system`) with all but n_live rows an env,
+    drawn at random, dead as the engine leaves an inactive contact: row and
+    column zeroed (the row only, symmetric=False), diagonal 1, b = 0; omega
+    from the row-sum bound."""
+    a, b, _, _ = system(dev, n_envs, n, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    order = torch.argsort(torch.rand((n_envs, n), generator=gen, device=dev))
+    dead = torch.zeros((n_envs, n), dtype=torch.bool, device=dev).scatter_(
+        1, order[:, n_live:], True)
+    a = a.masked_fill(dead[:, :, None], 0)
+    if symmetric:
+        a = a.masked_fill(dead[:, None, :], 0)
+    a = a + torch.diag_embed(dead.float())
+    b = b.masked_fill(dead, 0)
+    aii_inv = 1.0 / torch.diagonal(a, dim1=-2, dim2=-1)
+    rho = torch.amax(a.abs().sum(-1) * aii_inv, dim=-1)
+    return a, b, aii_inv, torch.clamp(1.8 / rho, max=1.0)
+
+
+def contact_systems(dev, cls_name='HalfCheetahEnv', task='cripple',
+                    n_envs=5):
+    """The Jacobi inputs (A, b, aii_inv, omega, n_sweeps) of one real
+    physics step of an env for n_envs envs, taken after 30 random-action
+    steps (HalfCheetah's feet on the floor, or on the blocks), the task
+    drawn (episode 1)."""
+    from learning_to_adapt_torch import envs
+    from learning_to_adapt_torch.physics import engine
+    env = envs.normalize(getattr(envs, cls_name)(
+        task=task, reset_every_episode=True, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    state = env.reset(n_envs, 1, gen)
+
+    def random_step(state):
+        act = 2 * torch.rand((n_envs, env.act_dim), generator=gen,
+                             device=dev) - 1
+        return env.step(state, act)[0]
+
+    for _ in range(30):
+        state = random_step(state)
+    captured = []
+    solve = engine.jacobi_solve
+
+    def capture(*args):
+        captured.append(tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args))
+        return solve(*args)
+
+    engine.jacobi_solve = capture
+    try:
+        random_step(state)
+    finally:
+        engine.jacobi_solve = solve
+    return captured[0]
+
+
+def cluster_cases(dev):
+    """{label: (A, b, aii_inv, omega)} of the cluster kernel's timed
+    systems at N_CLUSTER rows: the blocks env's contact systems (5 envs),
+    random SPD (every row live) for 5 and 512 envs, and 99 % of the rows
+    dead for 512 envs."""
+    A, b, aii_inv, omega, _ = contact_systems(dev, 'HalfCheetahBlocksEnv',
+                                              'damping')
+    return {'blocks 5': (A, b, aii_inv, omega),
+            'dense 5': system(dev, 5, N_CLUSTER, seed=5),
+            'dense 512': system(dev, 512, N_CLUSTER, seed=512),
+            '99% dead 512': dead_system(dev, 512, N_CLUSTER, 10, seed=512)}
 
 
 def kernel_device_ms(fn, iters=100):
@@ -265,9 +342,9 @@ def kernel_device_ms(fn, iters=100):
     return sum(runs) / len(runs) / 1e3
 
 
-def _instantiation(path, nvcc_log, per_row, cols, rows):
-    """Registers, spills and SASS instruction counts of one instantiation."""
-    tag = f'jacobi_kernelILi{per_row}ELi{cols}ELi{rows}E'
+def _instantiation(path, nvcc_log, tag):
+    """Registers, spills and SASS instruction counts of the kernel whose
+    mangled name holds `tag`."""
     lines = nvcc_log.splitlines()
     at = next(i for i, ln in enumerate(lines)
               if 'Compiling entry' in ln and tag in ln)
@@ -281,7 +358,7 @@ def _instantiation(path, nvcc_log, per_row, cols, rows):
     ops = re.findall(r'/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)',
                      body)
     count = {k: sum(op.startswith(k) for op in ops)
-             for k in ('LDS', 'LDS.128', 'SHFL', 'FFMA', 'BAR')}
+             for k in ('LDS', 'LDS.128', 'SHFL', 'FFMA', 'BAR', 'UCGABAR')}
     return '; '.join(info) + f'; SASS {len(ops)} instructions, ' + \
         ', '.join(f'{k} {v}' for k, v in count.items())
 
@@ -298,12 +375,16 @@ def main():
         built = dict(zip(VARIANTS, pool.map(compile_variant, VARIANTS)))
     libs = {name: lib for name, (lib, _, _) in built.items()}
     for name, (_, path, nvcc_log) in built.items():
+        if name in CLUSTER_VARIANTS:
+            print(f'{name}: jacobi_cluster_kernel; '
+                  f'{_instantiation(path, nvcc_log, "jacobi_cluster_kernel")}')
         if name != 'kept' and name in CLUSTER_VARIANTS:
             continue
         shape = run_variant(name, libs, lambda: jc.launch_shape(N))
+        tag = 'jacobi_kernelILi{}ELi{}ELi{}E'.format(*shape[:3])
         print(f'{name}: tier {shape[:3]} (threads per row, columns, rows '
               f'per thread), {shape[3]} threads; '
-              f'{_instantiation(path, nvcc_log, *shape[:3])}')
+              f'{_instantiation(path, nvcc_log, tag)}')
 
     times = {}
     tiers = [v for v in VARIANTS if v == 'kept' or
@@ -321,30 +402,28 @@ def main():
                 err = float((launch() - ref).abs().max())
                 return err, kernel_device_ms(launch)
             err, ms = run_variant(name, libs, measure)
-            times.setdefault((name, n_envs), [err]).append(ms)
-        cargs = system(dev, n_envs, N_CLUSTER, seed=n_envs)
+            times.setdefault((name, f'E={n_envs:3d} N={N}'), [err]).append(ms)
+    for label, cargs in cluster_cases(dev).items():
         cref = jc.jacobi_solve_plain(*cargs, SWEEPS)
+        live = jc.live_rows(*cargs).sum(-1)
+        print(f'cluster {label}: N = {N_CLUSTER}, live rows an env '
+              f'{int(live.min())}-{int(live.max())}', flush=True)
+        iters = 10 if cargs[1].shape[0] > 100 else 100
         for name in CLUSTER_VARIANTS + CLUSTER_VARIANTS[::-1]:
 
             def measure():
                 def launch():
-                    return jc.jacobi_solve_cluster(*cargs, SWEEPS)
+                    return jc.jacobi_solve_cluster(*cargs,
+                                                   VARIANTS[name][1])
                 err = float((launch() - cref).abs().max())
-                return err, kernel_device_ms(launch)
-            shape = jc.cluster_shape
-            if name == 'cluster_c8':
-                jc.cluster_shape = lambda n, e, sms: shape(n, e, 0)
-            try:
-                err, ms = run_variant(name, libs, measure)
-            finally:
-                jc.cluster_shape = shape
-            times.setdefault((name + '@cluster', n_envs), [err]).append(ms)
-            print(f'{name}@cluster E={n_envs}: {ms:.5f} ms', flush=True)
-    for (name, n_envs), (err, *ms) in times.items():
-        n = N_CLUSTER if name.endswith('@cluster') else N
-        print(f'{name:15s} E={n_envs:3d} N={n} {SWEEPS} sweeps: '
-              f'device ms per launch {" ".join(f"{m:.5f}" for m in ms)} '
-              f'(max_abs_err vs 60 plain sweeps {err:.2e})')
+                return err, kernel_device_ms(launch, iters)
+            err, ms = run_variant(name, libs, measure)
+            times.setdefault((name, label), [err]).append(ms)
+            print(f'{name} {label}: {ms:.5f} ms', flush=True)
+    for (name, label), (err, *ms) in times.items():
+        print(f'{name:23s} {label:12s} {SWEEPS} sweeps: device ms per '
+              f'launch {" ".join(f"{m:.5f}" for m in ms)} (max_abs_err vs '
+              f'60 plain sweeps {err:.2e})')
 
 
 if __name__ == '__main__':

@@ -4,15 +4,18 @@ Counterpart of learning_to_adapt_tpu/ops/pallas_jacobi.py (`jacobi_solve`
 and its XLA twin `jacobi_solve_xla`). The kernels, csrc/jacobi.cu, take the
 env batch directly, all sweeps in one launch. Up to MAX_ROWS rows: one block
 per env, A held in registers with each row split over a few threads (launch
-tiers by N). Above: one thread-block cluster per env, each block streaming
-its share of A's rows from L2 every sweep and gathering f from the others
-through distributed shared memory (`jacobi_solve_cluster`), up to
-MAX_CLUSTER_ROWS rows, where the f buffers fill a block's shared memory.
+tiers by N). Above: one thread-block cluster per env
+(`jacobi_solve_cluster`) that reads A once, finds the rows that can move
+(`live_rows`), and sweeps only those: in one block when they are few, else
+over the cluster with their rows of A held on chip and f pushed
+between the blocks through distributed shared memory; up to
+MAX_CLUSTER_ROWS rows (`cluster_shape`).
 
 `jacobi_solve` is what the engine calls. On CUDA tensors it launches the
 kernel (float32 only) or raises; only tensors on the CPU take the plain
 version, `jacobi_solve_plain`.
 """
+import collections
 import ctypes
 
 import torch
@@ -25,21 +28,57 @@ from learning_to_adapt_torch.ops import build
 TIERS = ((4, 8, 1), (4, 16, 2), (4, 20, 4), (4, 32, 2), (4, 56, 2))
 MAX_ROWS = TIERS[-1][0] * TIERS[-1][1]
 
-#: threads per block of the cluster kernel: a warp per row of A
+#: threads per block of the cluster kernel
 CLUSTER_THREADS = 512
+#: the most live rows the cluster kernel solves in one block
+SMALL_MAX = 224
+
+#: columns of a row the cluster kernel holds in registers (8 float4 a lane)
+REGISTER_COLS = 1024
+
+#: the cluster kernel's plan for N rows: blocks per cluster, threads per
+#: block, rows of A each block scans, of them held in shared memory, in
+#: registers (one a warp) and streamed from L2 each sweep when every row is
+#: live, the most live rows solved in one block, bytes of shared memory per
+#: block
+ClusterPlan = collections.namedtuple(
+    'ClusterPlan', 'cluster threads rows held in_registers streamed small '
+    'smem')
 
 
-def _cluster_smem(n, cluster):
-    """Bytes of shared memory a cluster block takes: the gathered f (n
-    floats) and its own rows' f, double-buffered."""
-    return 4 * (n + 2 * -(-n // cluster))
+def _round4(x):
+    return -(-x // 4) * 4
+
+
+def _plan(n, cluster):
+    """The plan of csrc/jacobi.cu cluster_layout: 32 bytes (mbarrier,
+    counts), the live list L (n4 ints), four arrays of the block's rows
+    (flags, its live list, b and aii_inv), then one region: f double-
+    buffered (2 n4 floats) and the held rows of A (n4 floats each), or, for
+    the one-block path, A[L, L] in rows of m | 1 floats with b, aii_inv and
+    f twice (4 m floats). None when not even the f buffers fit."""
+    n4, rows = _round4(n), -(-n // cluster)
+    fixed = 32 + 4 * n4 + 16 * _round4(rows)
+    room = build.SMEM_LIMIT - fixed
+    if room < 8 * n4:
+        return None
+    held = min(rows, (room - 8 * n4) // (4 * n4))
+    regs = min(CLUSTER_THREADS // 32, rows - held) if n4 <= REGISTER_COLS \
+        else 0
+    small = SMALL_MAX
+    while 4 * (small * (small + 1) + 4 * small) > room:
+        small -= 1
+    smem = fixed + max(4 * (2 + held) * n4,
+                       4 * (small * (small + 1) + 4 * small))
+    return ClusterPlan(cluster, CLUSTER_THREADS, rows, held, regs,
+                       rows - held - regs, small, smem)
 
 
 def _max_cluster_rows():
     lo, hi = 1, build.SMEM_LIMIT // 4
     while lo < hi:                       # the portable cluster of 8 is the
         mid = (lo + hi + 1) // 2         # smallest, so it needs the most
-        if _cluster_smem(mid, 8) <= build.SMEM_LIMIT:
+        if _plan(mid, 8) is not None:
             lo = mid
         else:
             hi = mid - 1
@@ -62,6 +101,20 @@ def jacobi_solve_plain(A, b, aii_inv, omega, n_sweeps):
     return f
 
 
+def live_rows(A, b, aii_inv, omega):
+    """(E, N) bool: the rows the cluster kernel sweeps. Row j is dead when
+    b_j == 0 and every A_jk (k != j) == 0: from f = 0 its f stays exactly 0
+    and adds exactly 0 to every other row, so the sweeps over the live rows
+    alone give the dense result. An env with any value of A, b, aii_inv or
+    omega that is not finite has every row live."""
+    n = b.shape[-1]
+    off = A.masked_fill(torch.eye(n, dtype=torch.bool, device=A.device), 0)
+    live = (off != 0).any(-1) | (b != 0)
+    finite = (torch.isfinite(A).all(-1).all(-1) & torch.isfinite(b).all(-1)
+              & torch.isfinite(aii_inv).all(-1) & torch.isfinite(omega))
+    return live | ~finite[:, None]
+
+
 def launch_shape(n):
     """(threads per row, columns per thread, rows per thread, threads per
     block) of the kernel for an N-row system: the smallest tier that takes
@@ -75,19 +128,15 @@ def launch_shape(n):
                      f'tier ({MAX_ROWS} rows)')
 
 
-def cluster_shape(n, n_envs, n_sms):
-    """(blocks per cluster, threads per block, rows per block, bytes of
-    shared memory per block) of the cluster kernel for n_envs systems of N
-    rows on a card of n_sms SMs: 16 blocks per env while every env's
-    cluster fits the card at once, else the portable 8. Raises ValueError
-    above MAX_CLUSTER_ROWS."""
+def cluster_shape(n, cluster=16):
+    """The ClusterPlan of the cluster kernel for N-row systems in clusters
+    of `cluster` blocks (16, or 8: `cluster_size`). Raises ValueError above
+    MAX_CLUSTER_ROWS."""
     if n > MAX_CLUSTER_ROWS:
         raise ValueError(f'jacobi_solve: N={n} rows exceed the largest the '
                          f'cluster kernel takes ({MAX_CLUSTER_ROWS} rows: '
                          'its f buffers fill shared memory)')
-    cluster = 16 if n_envs * 16 <= n_sms else 8
-    return (cluster, CLUSTER_THREADS, -(-n // cluster),
-            _cluster_smem(n, cluster))
+    return _plan(n, cluster)
 
 
 def route(n):
@@ -95,18 +144,22 @@ def route(n):
     'cluster' (N <= MAX_CLUSTER_ROWS); raises ValueError above."""
     if n <= MAX_ROWS:
         return 'tiers'
-    cluster_shape(n, 1, 1)
+    cluster_shape(n)
     return 'cluster'
 
 
-_SMS = {}
+_CLUSTER = {}
 
 
-def _sm_count(device):
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device]
+def cluster_size(n, device):
+    """Blocks per cluster for N rows on `device`: 16 where the card can hold
+    a cluster of 16 of the plan's blocks at once (a non-portable size; one
+    block an SM, as each takes most of an SM's shared memory), else the
+    portable 8. Asked of the card once per N and device."""
+    key = (n, str(device))
+    if key not in _CLUSTER:
+        _CLUSTER[key] = 16 if cluster_occupancy(n, 16, device) > 0 else 8
+    return _CLUSTER[key]
 
 
 def _lib():
@@ -115,9 +168,9 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.jacobi_solve.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
         lib.jacobi_solve.restype = i
-        lib.jacobi_solve_cluster.argtypes = [p, p, p, p, p] + [i] * 6 + [p]
+        lib.jacobi_solve_cluster.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
         lib.jacobi_solve_cluster.restype = i
-        lib.jacobi_cluster_occupancy.argtypes = [i] * 4 + [
+        lib.jacobi_cluster_occupancy.argtypes = [i] * 5 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.jacobi_cluster_occupancy.restype = i
         lib._typed = True
@@ -167,34 +220,36 @@ def jacobi_solve_cluster(A, b, aii_inv, omega, n_sweeps):
     engine reaches it through jacobi_solve for N > MAX_ROWS only). All
     inputs float32 on one CUDA device."""
     n_envs, n = _check(A, b, aii_inv, omega)
-    cluster, threads, _, _ = cluster_shape(
-        n, n_envs, _sm_count(A.device) if A.is_cuda else 1)
+    cluster_shape(n)                     # raises above MAX_CLUSTER_ROWS
     if b.numel() == 0:                   # nothing to solve, nothing launched
         return torch.empty_like(b)
+    plan = cluster_shape(n, cluster_size(n, A.device))
     lib = _lib()
     A, b, aii_inv, omega = (t.contiguous() for t in (A, b, aii_inv, omega))
-    vec = 4 if n % 4 == 0 and A.data_ptr() % 16 == 0 else 1
+    bulk = int(n % 4 == 0 and A.data_ptr() % 16 == 0)
     out = torch.empty_like(b)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
         rc = lib.jacobi_solve_cluster(
             A.data_ptr(), b.data_ptr(), aii_inv.data_ptr(), omega.data_ptr(),
-            out.data_ptr(), n_envs, n, int(n_sweeps), cluster, threads, vec,
+            out.data_ptr(), n_envs, n, int(n_sweeps), plan.cluster,
+            plan.rows, plan.held, plan.in_registers, plan.small, bulk,
             stream)
     build.check(rc, 'jacobi_solve_cluster')
     jacobi_solve_cluster.launches += 1
     return out
 
 
-def cluster_occupancy(n, cluster, vec, device):
-    """Clusters of the cluster kernel's shape for N rows the card holds at
-    once (cudaOccupancyMaxActiveClusters); 0: the shape cannot launch."""
+def cluster_occupancy(n, cluster, device):
+    """Clusters of the cluster kernel's plan for N rows the card holds at
+    once (cudaOccupancyMaxActiveClusters); 0: the plan cannot launch."""
+    plan = cluster_shape(n, cluster)
     lib = _lib()
     active = ctypes.c_int(0)
     with torch.cuda.device(device):
         build.check(lib.jacobi_cluster_occupancy(
-            n, cluster, CLUSTER_THREADS, vec, ctypes.byref(active)),
-            'jacobi_cluster_occupancy')
+            n, cluster, plan.rows, plan.held, plan.small,
+            ctypes.byref(active)), 'jacobi_cluster_occupancy')
     return active.value
 
 

@@ -275,12 +275,127 @@ def test_jacobi_cluster_kernel_matches_plain(dev, n_envs, n):
 
 def test_jacobi_cluster_kernel_at_512_envs(dev):
     """The blocks system size at the saturated sampling width: clusters of
-    the portable 8 blocks, more than the card holds at once."""
+    16 blocks (the card holds one at once), more than the card holds at
+    once."""
     args = _system(dev, 512, 988, seed=9)
-    assert jacobi.cluster_shape(988, 512, 132)[0] == 8
+    assert jacobi.cluster_size(988, dev) == 16
     out = jacobi.jacobi_solve(*args, 60)
     torch.testing.assert_close(out, jacobi.jacobi_solve_plain(*args, 60),
                                **JACOBI_TOL)
+
+
+def _dead_system(dev, n_envs, n, n_live, seed, symmetric=True):
+    """Random SPD systems with all but n_live rows an env (drawn at random)
+    dead as the engine leaves an inactive contact: row and column zeroed
+    (the row only, symmetric=False), diagonal 1, b = 0."""
+    a, b, _, _ = _system(dev, n_envs, n, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    order = torch.argsort(torch.rand((n_envs, n), generator=gen, device=dev))
+    dead = torch.zeros((n_envs, n), dtype=torch.bool, device=dev).scatter_(
+        1, order[:, n_live:], True)
+    a = a.masked_fill(dead[:, :, None], 0)
+    if symmetric:
+        a = a.masked_fill(dead[:, None, :], 0)
+    a = a + torch.diag_embed(dead.float())
+    b = b.masked_fill(dead, 0)
+    aii_inv = 1.0 / torch.diagonal(a, dim1=-2, dim2=-1)
+    rho = torch.amax(a.abs().sum(-1) * aii_inv, dim=-1)
+    return a, b, aii_inv, torch.clamp(1.8 / rho, max=1.0)
+
+
+@pytest.mark.parametrize('n_envs,n_live,symmetric', [
+    (5, 99, True), (5, 10, True), (512, 99, True), (512, 10, True),
+    (5, 224, True), (5, 225, True), (5, 300, True), (5, 0, True),
+    (5, 10, False), (5, 300, False)])
+def test_jacobi_cluster_kernel_skips_dead_rows(dev, n_envs, n_live,
+                                               symmetric):
+    """988 rows with 90 % and 99 % of them dead, 224 and 225 live (the two
+    sides of the one-block path), a dense path over part of the rows, none
+    live, and a non-symmetric A whose dead rows keep their columns: one
+    launch, the plain result, dead rows exactly 0."""
+    args = _dead_system(dev, n_envs, 988, n_live, seed=n_live + n_envs,
+                        symmetric=symmetric)
+    live = jacobi.live_rows(*args)
+    assert (live.sum(-1) == n_live).all()
+    before = _launches()
+    out = jacobi.jacobi_solve(*args, 60)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 1)
+    torch.testing.assert_close(out, jacobi.jacobi_solve_plain(*args, 60),
+                               **JACOBI_TOL)
+    assert (out[~live] == 0).all() and (out >= 0).all()
+
+
+def _fmax_sweeps(A, b, aii_inv, omega, n_sweeps):
+    """The dense sweeps with the kernels' projection, fmaxf(x, 0), which
+    gives 0 for a NaN x where the plain version's clamp keeps the NaN."""
+    f = torch.zeros_like(b)
+    for _ in range(n_sweeps):
+        r = (A @ f[..., None])[..., 0] + b
+        f = torch.fmax(f - omega[:, None] * r * aii_inv,
+                       torch.zeros_like(f))
+    return f
+
+
+def test_jacobi_cluster_kernel_non_finite_env_is_all_live(dev):
+    """A NaN in a dead row's column of one env: the dense sweeps see it (the
+    row that holds it totals NaN, so its f is 0 every sweep), which the
+    live rows alone would not. The kernel takes every row of that env as
+    live and gives the dense sweeps' result; the other envs keep their
+    rule and the plain result."""
+    args = list(_dead_system(dev, 3, 988, 10, seed=5))
+    live = jacobi.live_rows(*args)
+    j = int((~live[1]).nonzero()[0, 0])
+    k = int(live[1].nonzero()[0, 0])
+    args[0] = args[0].clone()
+    args[0][1, k, j] = float('nan')
+    assert jacobi.live_rows(*args)[1].all()
+    out = jacobi.jacobi_solve(*args, 60)
+    ref = _fmax_sweeps(*args, 60)
+    torch.testing.assert_close(out, ref, **JACOBI_TOL)
+    assert out[1, k] == 0
+    torch.testing.assert_close(out[[0, 2]], jacobi.jacobi_solve_plain(
+        *[a[[0, 2]] for a in args], 60), **JACOBI_TOL)
+
+
+def test_jacobi_cluster_kernel_on_blocks_contact_systems(dev):
+    """One physics step of 5 blocks envs after 30 random-action steps: one
+    cluster launch on 988-row contact systems, held against the plain
+    version on the same inputs, dead rows exactly 0."""
+    from learning_to_adapt_torch import envs
+    from learning_to_adapt_torch.physics import engine
+    env = envs.normalize(envs.HalfCheetahBlocksEnv(
+        task='damping', reset_every_episode=True, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = env.reset(5, 1, gen)
+
+    def random_step(state):
+        act = 2 * torch.rand((5, env.act_dim), generator=gen, device=dev) - 1
+        return env.step(state, act)[0]
+    for _ in range(30):
+        state = random_step(state)
+    captured, solve = [], engine.jacobi_solve
+
+    def capture(*args):
+        out = solve(*args)
+        captured.append((args, out))
+        return out
+    engine.jacobi_solve = capture
+    try:
+        before = _launches()
+        random_step(state)
+        torch.cuda.synchronize()
+    finally:
+        engine.jacobi_solve = solve
+    assert _launches() == (before[0], before[1] + 1) and len(captured) == 1
+    (A, b, aii_inv, omega, n_sweeps), out = captured[0]
+    assert A.shape == (5, 988, 988) and n_sweeps == 60
+    live = jacobi.live_rows(A, b, aii_inv, omega)
+    assert (live.sum(-1) <= jacobi.SMALL_MAX).all() and live.any()
+    torch.testing.assert_close(
+        out, jacobi.jacobi_solve_plain(A, b, aii_inv, omega, n_sweeps),
+        **JACOBI_TOL)
+    assert (out[~live] == 0).all()
 
 
 @pytest.mark.parametrize('case', ['omega_one', 'b_nonnegative', 'zero_row'])
@@ -304,11 +419,11 @@ def test_jacobi_cluster_kernel_special_systems(dev, case):
 
 
 def test_jacobi_cluster_shapes_launch_on_this_card(dev):
-    """Clusters of 16 and of 8 blocks fit the card (a cluster of 16 is
-    non-portable)."""
-    for cluster in (16, 8):
-        for vec in (4, 1):
-            assert jacobi.cluster_occupancy(988, cluster, vec, dev) > 0
+    """Clusters of 16 and of 8 blocks of the plan fit the card (a cluster of
+    16 is non-portable), at the blocks env's N and the largest."""
+    for n in (988, jacobi.MAX_CLUSTER_ROWS):
+        for cluster in (16, 8):
+            assert jacobi.cluster_occupancy(n, cluster, dev) > 0
 
 
 def test_jacobi_kernel_refuses_n_above_largest_tier(dev):

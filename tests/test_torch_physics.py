@@ -269,35 +269,45 @@ def test_jacobi_kernel_entry_launches_nothing_for_an_empty_batch():
     (33, (4, 16, 2, 96)), (64, (4, 16, 2, 128)), (76, (4, 20, 4, 96)),
     (80, (4, 20, 4, 96)), (81, (4, 32, 2, 192)), (128, (4, 32, 2, 256)),
     (129, (4, 56, 2, 288)), (200, (4, 56, 2, 416)), (224, (4, 56, 2, 448)),
-    (225, (16, 512, 15, 4 * (225 + 2 * 15))),
-    (988, (16, 512, 62, 4 * (988 + 2 * 62))),
+    (225, (16, 512, 15, 15, 0, 0, 224, 206384)),
+    (988, (16, 512, 62, 55, 7, 0, 224, 230272)),
 ])
 def test_jacobi_launch_tier(n, shape):
     """N -> (threads per row, columns per thread, rows per thread, threads
-    per block) up to 224 rows; above, the cluster kernel's (blocks per
-    cluster, threads per block, rows per block, bytes of shared memory) for
-    5 envs on a card of 132 SMs."""
+    per block) up to 224 rows; above, the cluster kernel's plan in clusters
+    of 16 (blocks per cluster, threads per block, rows of A a block scans,
+    of them held in shared memory, in registers and streamed, the most live
+    rows one block solves, bytes of shared memory: the one-block path's
+    A[L, L] of 224 x 225 floats at 225 rows; at 988, 55 rows of 988 floats
+    in shared memory and 7 in registers)."""
     if n <= port_jacobi.MAX_ROWS:
         assert port_jacobi.launch_shape(n) == shape
     else:
-        assert port_jacobi.cluster_shape(n, 5, 132) == shape
+        assert port_jacobi.cluster_shape(n) == shape
 
 
-@pytest.mark.parametrize('n_envs,n_sms,cluster', [
-    (1, 132, 16), (5, 132, 16), (8, 132, 16), (9, 132, 8), (512, 132, 8),
-    (5, 64, 8)])
-def test_jacobi_cluster_size(n_envs, n_sms, cluster):
-    """16 blocks per env while every env's cluster fits the card at once,
-    else the portable 8; shared memory for the gathered f and the block's
-    own rows, double-buffered, within a block's 227 KB up to
-    MAX_CLUSTER_ROWS."""
-    got = port_jacobi.cluster_shape(988, n_envs, n_sms)
-    assert got[0] == cluster and got[2] == -(-988 // cluster)
-    top = port_jacobi.cluster_shape(port_jacobi.MAX_CLUSTER_ROWS, n_envs,
-                                    n_sms)
-    assert top[3] <= 232448
-    assert 4 * (port_jacobi.MAX_CLUSTER_ROWS + 1 + 2 * -(
-        -(port_jacobi.MAX_CLUSTER_ROWS + 1) // 8)) > 232448
+@pytest.mark.parametrize('n,active16,cluster', [
+    (225, 7, 16), (988, 8, 16), (988, 1, 16), (988, 0, 8), (2048, 0, 8),
+    (port_jacobi.MAX_CLUSTER_ROWS, 7, 16)])
+def test_jacobi_cluster_size(n, active16, cluster, monkeypatch):
+    """16 blocks per env wherever the card holds one cluster of 16 of the
+    plan's blocks at once (cudaOccupancyMaxActiveClusters, asked once per N
+    and device), else the portable 8; the plan fits a block's 227 KB up to
+    MAX_CLUSTER_ROWS, and one row more does not fit even its f buffers."""
+    asked = []
+    monkeypatch.setattr(port_jacobi, '_CLUSTER', {})
+    monkeypatch.setattr(port_jacobi, 'cluster_occupancy',
+                        lambda n, c, dev: asked.append(c) or active16)
+    assert port_jacobi.cluster_size(n, 'cuda:0') == cluster
+    assert port_jacobi.cluster_size(n, 'cuda:0') == cluster
+    assert asked == [16]
+    got = port_jacobi.cluster_shape(n, cluster)
+    assert got.cluster == cluster and got.rows == -(-n // cluster)
+    top = port_jacobi.cluster_shape(port_jacobi.MAX_CLUSTER_ROWS, cluster)
+    assert top.smem <= 232448
+    n4 = -(-(port_jacobi.MAX_CLUSTER_ROWS + 1) // 4) * 4
+    r4 = -(-(-(-(port_jacobi.MAX_CLUSTER_ROWS + 1) // 8)) // 4) * 4
+    assert 32 + 4 * n4 + 16 * r4 + 8 * n4 > 232448
 
 
 @pytest.mark.parametrize('precision', ['f64', 'f32'])
