@@ -231,6 +231,11 @@ SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
               'cudaEventSynchronize')
 
 MLP_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 roundings of hidden units flip
+# the captured fit epoch against the eager one, after FIT_CHECK_STEPS train
+# steps and the validation: the same kernels from one state on one draw
+FIT_CHECK_STEPS = 8
+FIT_PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
+FIT_LOSS_RTOL = 1e-5
 JACOBI_TOL = dict(rtol=1e-4, atol=1e-5)  # f32, other summation order
 
 
@@ -966,20 +971,25 @@ def profile_policy_steps(dev, sampler):
         {k: round(us / 1e3 / PROFILE_LEN, 4) for k, us in top}))
 
 
-def watch_host_syncs(fn, n_steps, what):
+def watch_host_syncs(fn, n_steps, what, most=None):
     """Runs fn once, watched two ways for the host waiting on the card:
     torch.profiler's record of the CUDA runtime's sync calls, grouped by the
     operator that made them, and CUDA's sync-debug mode, grouped by Python
     call site. Anything that waits n_steps times or more (once a step) fails
-    the run."""
+    the run, and so do more than `most` waits in all by either record,
+    where `most` is given: fn runs inside a 'watched' range, so the
+    profiler's own synchronize when its window closes ('... in python')
+    is not counted."""
     import warnings
     import torch
+    from torch.profiler import record_function
 
     def watched():
         caught.clear()              # the warnings of this window only
         torch.cuda.set_sync_debug_mode('warn')
         try:
-            fn()
+            with record_function('watched'):
+                fn()
         finally:
             torch.cuda.set_sync_debug_mode('default')
     with warnings.catch_warnings(record=True) as caught:
@@ -998,6 +1008,12 @@ def watch_host_syncs(fn, n_steps, what):
                 if n >= n_steps}
     if per_step:
         raise AssertionError(f'host waits once a step or more: {per_step}')
+    waits = max(sum(n for k, n in by_op.items()
+                    if not k.endswith(' in python')), sum(sites.values()))
+    if most is not None and waits > most:
+        raise AssertionError(f'{waits} host waits in {what}, more than '
+                             f'{most}')
+    return waits
 
 
 def check_host_syncs(dev, sampler):
@@ -1382,77 +1398,204 @@ def fit_data(model, n_paths, gen):
     return data
 
 
-def time_fit_epochs(epoch, steps, what, card):
-    """Times a fit's epoch: one warm-up and FIT_TIMED_EPOCHS timed epochs
-    (CUDA events, host clock), one epoch under torch.profiler (device time
-    and activities per train step, busy share, host time of each 'fit.*'
-    label), and one epoch watched for host waits, failing on a wait once
-    per train step or more. epoch() runs one epoch and reads its losses,
-    as the fit does; steps: its train steps."""
+class FitEpochs:
+    """A model's fit epoch on staged timing data, run two ways: eagerly
+    (epoch_fn, from the params and optimizer state it is handed) and
+    compiled (the model's CompiledEpoch: its train and validation steps
+    captured once as CUDA graphs and replayed), as fit runs it on the card.
+    args(steps) gives the model's epoch arguments before the generator for
+    `steps` train steps (None: the whole epoch's)."""
+
+    def __init__(self, model, train, test, args):
+        self.model, self.train, self.test, self.args = (model, train, test,
+                                                        args)
+        self.eager_state = (model.params, model.opt_state)
+        self.compiled = model.compiled_epoch(train, test)
+        # MB-MPC's timing data has the shape key of its trainer's fits
+        self.reused = self.compiled.captured
+        self.load(*self.eager_state)
+        if not self.compiled.captured:
+            raise AssertionError('the compiled epoch did not capture')
+        # both steps' warm-ups and captures, when this key was first fitted
+        self.capture_s = self.compiled.capture_s
+
+    def load(self, params, opt_state):
+        m = self.model
+        self.compiled.prepare(lambda st: m._load_state(
+            st, params, opt_state, m.normalizer, self.train, self.test))
+
+    def eager(self, gen, steps=None, state=None):
+        """One eager epoch from `state` (default: where the last eager
+        epoch ended); returns its losses (device tensors)."""
+        m = self.model
+        params, opt_state = state or self.eager_state
+        out = m.epoch_fn(params, opt_state, m.normalizer, self.train,
+                         self.test, *self.args(steps), gen)
+        self.eager_state = out[:2]
+        return list(out[2:])
+
+    def captured(self, gen, steps=None):
+        """One compiled epoch from the compiled state; returns its losses."""
+        ce = self.compiled
+        return list(self.model._epoch(ce.state, *self.args(steps), gen,
+                                      None, ce.train, ce.valid))
+
+    def captured_params(self):
+        return self.model._state_out(self.compiled.state, clone=True)[0]
+
+
+def fit_diffs(fe, steps, what):
+    """The compiled epoch against the eager one from the model's state on
+    the same draws (one generator seed): after FIT_CHECK_STEPS train steps
+    and the validation, parameters within FIT_PARAM_TOL and losses within
+    FIT_LOSS_RTOL, or the phase fails; after the whole epoch of `steps`
+    train steps the largest differences are returned (and printed)."""
+    import torch
+    from learning_to_adapt_torch.models.optim import tree_leaves
+    m = fe.model
+    start = (m.params, m.opt_state)
+    gen = torch.Generator(device=m.device)
+    out = {}
+    for n in (FIT_CHECK_STEPS, None):
+        gen.manual_seed(11)
+        eager = torch.stack(fe.eager(gen, n, state=start))
+        fe.load(*start)
+        gen.manual_seed(11)
+        cap = torch.stack(fe.captured(gen, n))
+        pairs = list(zip(tree_leaves(fe.captured_params()),
+                         tree_leaves(fe.eager_state[0])))
+        p_abs = max((a - b).abs().max().item() for a, b in pairs)
+        l_rel = ((cap - eager).abs() /
+                 eager.abs().clamp(min=1e-30)).max().item()
+        key = 'check' if n else 'epoch'
+        out[key] = dict(steps=n or steps, max_param_abs=p_abs,
+                        max_loss_rel=l_rel)
+        if n:
+            for a, b in pairs:
+                torch.testing.assert_close(a, b, **FIT_PARAM_TOL)
+            if not l_rel <= FIT_LOSS_RTOL:
+                raise AssertionError(f'{what}: losses captured {cap.tolist()} '
+                                     f'eager {eager.tolist()}')
+    fe.load(*start)
+    fe.eager_state = start
+    log(f'{what}: captured vs eager from one state on the same draws: '
+        f'{json.dumps(out)} (held after {FIT_CHECK_STEPS} train steps and '
+        f'the validation: params {FIT_PARAM_TOL}, losses rtol '
+        f'{FIT_LOSS_RTOL})')
+    return out
+
+
+def time_fit_epochs(fe, steps, steps_valid, what, card):
+    """Times a fit's epoch, eager and captured in turns in one call (the
+    host's speed varies between calls): after one warm-up epoch of each,
+    FIT_TIMED_EPOCHS epochs of each in the order e c c e e c (CUDA events,
+    host clock; the captured ones must replay the train step `steps` times
+    and the validation step `steps_valid` times an epoch); one epoch of
+    each under torch.profiler (device time and activities per train step,
+    busy share; host time of each 'fit.*' label, the eager sub-labels from
+    the eager epoch); and one epoch of each watched for host waits, the
+    eager one failing on a wait once per train step or more, the captured
+    one on more than one wait. Each epoch reads its losses once, as fit
+    does. Returns {mode: numbers}."""
     import math
     import torch
-    t0 = time.time()
-    losses = epoch()                                 # warm-up
-    warm_s = time.time() - t0
-    walls, events = [], []
-    for _ in range(FIT_TIMED_EPOCHS):
+    gen = torch.Generator(device=fe.model.device)
+    gen.manual_seed(12)
+    runs = {'eager': lambda: fe.eager(gen),
+            'captured': lambda: fe.captured(gen)}
+
+    def epoch(mode):
+        return torch.stack(runs[mode]()).tolist()
+    res = {}
+    for mode in runs:
+        t0 = time.time()
+        epoch(mode)                                  # warm-up
+        res[mode] = dict(warm_s=time.time() - t0, walls=[], events=[])
+    ce = fe.compiled
+    for mode in ('eager', 'captured', 'captured', 'eager', 'eager',
+                 'captured')[:2 * FIT_TIMED_EPOCHS]:
         start, end = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
+        replays = (ce.train.replays, ce.valid.replays)
         torch.cuda.synchronize()
         t0 = time.time()
         start.record()
-        losses = epoch()
+        losses = epoch(mode)
         end.record()
         torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        events.append(start.elapsed_time(end))
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError(f'fit losses {losses}')
+        res[mode]['walls'].append(time.time() - t0)
+        res[mode]['events'].append(start.elapsed_time(end))
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f'{mode} fit losses {losses}')
+        done = (ce.train.replays - replays[0], ce.valid.replays - replays[1])
+        want = (steps, steps_valid) if mode == 'captured' else (0, 0)
+        if done != want:
+            raise AssertionError(f'{mode} epoch: {done} train and valid step '
+                                 f'replays, not {want}')
+    for mode, r in res.items():
+        timed = {}
 
-    torch.cuda.synchronize()
-    timed = {}
+        def window():
+            t0 = time.time()
+            epoch(mode)
+            torch.cuda.synchronize()
+            timed['s'] = time.time() - t0
+        trace = profiled(window)
+        device_us = trace.device_us()
+        parts = trace.parts('fit.')
+        n_train = parts.get('fit.train_step', (0,))[0]
+        if n_train != steps:
+            raise AssertionError(f'{mode}: {n_train} labelled train steps != '
+                                 f'{steps}')
+        r['ms_step'] = sum(r['events']) / len(r['events']) / steps
+        r['s_epoch'] = sum(r['walls']) / len(r['walls'])
+        r['device_ms_step'] = device_us / 1e3 / steps
+        r['activities_step'] = len(trace.device) / steps
+        r['busy_profiled'] = device_us / 1e6 / timed['s']
+        r['busy'] = device_us / 1e6 / r['s_epoch']
+        log(f'{what}, {mode}, on {card}: warm-up epoch {r["warm_s"]:.3f} s; '
+            f'epochs {[round(w, 3) for w in r["walls"]]} s, CUDA events '
+            f'{[round(e, 1) for e in r["events"]]} ms = {r["ms_step"]:.4f} '
+            f'ms per train step (validation included); {r["s_epoch"]:.3f} s '
+            'per epoch')
+        log(f'  profile (one epoch): wall {timed["s"]:.3f} s profiled; device '
+            f'time {r["device_ms_step"]:.4f} ms per train step (valid '
+            f'included), {r["activities_step"]:.0f} device activities per '
+            f'train step; busy share {r["busy_profiled"]:.3f} of the profiled '
+            f'wall, {r["busy"]:.3f} of the unprofiled wall; parts (host, '
+            'profiled) ' + json.dumps(
+                {k: dict(calls=n, host_ms_per_call=round(h / n / 1e3, 4))
+                 for k, (n, h) in parts.items()}))
+        top = {}
+        for name, ns, _ in trace.device:
+            top[name[:60]] = top.get(name[:60], 0) + ns / 1e3
+        log('  top device activities (ms per train step): ' + json.dumps(
+            {k: round(us / 1e3 / steps, 4) for k, us in sorted(
+                top.items(), key=lambda kv: -kv[1])[:8]}))
+        r['host_waits'] = watch_host_syncs(
+            lambda: epoch(mode), steps,
+            f'one {mode} fit epoch of {steps} train steps',
+            most=1 if mode == 'captured' else None)
+    res['captured']['capture_s'] = fe.capture_s
+    log(f'{what} on {card}: captured {res["captured"]["ms_step"]:.4f} '
+        f'against eager {res["eager"]["ms_step"]:.4f} ms per train step '
+        f'({res["eager"]["ms_step"] / res["captured"]["ms_step"]:.2f}x); '
+        f'capture (both steps, warm-ups included) {fe.capture_s:.3f} s'
+        + (', made by the trainer\'s fits of this shape key' if fe.reused
+           else ''))
+    return res
 
-    def window():
-        t0 = time.time()
-        epoch()
-        torch.cuda.synchronize()
-        timed['s'] = time.time() - t0
-    trace = profiled(window)
-    prof_s = timed['s']
-    device_us = trace.device_us()
-    # host time of each labelled part (the kernels of a backward pass are
-    # launched from autograd's device thread, outside these labels, so
-    # device time is only read for the epoch as a whole)
-    parts = trace.parts('fit.')
-    n_train = parts.get('fit.train_step', (0,))[0]
-    if n_train != steps:
-        raise AssertionError(f'{n_train} labelled train steps != {steps}')
-    ms_step = sum(events) / len(events) / steps
-    s_epoch = sum(walls) / len(walls)
-    log(f'{what} on {card}: warm-up epoch {warm_s:.3f} s; epochs '
-        f'{[round(w, 3) for w in walls]} s, CUDA events '
-        f'{[round(e, 1) for e in events]} ms = {ms_step:.3f} ms per '
-        f'train step (validation included); {s_epoch:.3f} s per epoch')
-    log(f'fit profile (one epoch): wall {prof_s:.3f} s profiled; device time '
-        f'{device_us / 1e3 / steps:.4f} ms per train step (valid included), '
-        f'{len(trace.device) / steps:.0f} device activities per train step; '
-        f'busy share {device_us / 1e6 / prof_s:.3f} of the profiled wall, '
-        f'{device_us / 1e6 / s_epoch:.3f} of the unprofiled wall; parts '
-        '(host, profiled) ' + json.dumps(
-            {k: dict(calls=n, host_ms_per_call=round(h / n / 1e3, 4))
-             for k, (n, h) in parts.items()}))
-    top = {}
-    for name, ns, _ in trace.device:
-        top[name[:60]] = top.get(name[:60], 0) + ns / 1e3
-    log('fit profile top device activities (ms per train step): ' +
-        json.dumps({k: round(us / 1e3 / steps, 4) for k, us in sorted(
-            top.items(), key=lambda kv: -kv[1])[:8]}))
-    watch_host_syncs(epoch, steps, f'one fit epoch of {steps} train steps')
+
+def fit_case(fe, steps, steps_valid, what, card):
+    """fit_diffs, then time_fit_epochs: a fit phase's record."""
+    diffs = fit_diffs(fe, steps, what)
+    return dict(time_fit_epochs(fe, steps, steps_valid, what, card),
+                diffs=diffs)
 
 
 def fit_phase(model, card):
     """Phase 7: the meta fit's epoch at full width on a dataset of the size
-    the canonical run holds by iteration 16."""
+    the canonical run holds by iteration 16, eager and captured."""
     import torch
     gen = torch.Generator(device=model.device)
     gen.manual_seed(7)
@@ -1462,17 +1605,10 @@ def fit_phase(model, card):
                                                 FIT_T)
     if (steps, steps_test) != (256, 64):
         raise AssertionError(f'steps per epoch {steps}, {steps_test}')
-    state = dict(params=model.params, opt_state=model.opt_state)
-
-    def epoch():
-        """One epoch and its one read of the losses, as fit runs it."""
-        (state['params'], state['opt_state'], post, pre,
-         valid) = model.epoch_fn(state['params'], state['opt_state'],
-                                 model.normalizer, train, test, FIT_PATHS,
-                                 FIT_VALID_PATHS, steps, steps_test, gen)
-        return torch.stack([post, pre, valid]).tolist()
-    time_fit_epochs(epoch, steps,
-                    f'fit at {FIT_PATHS} train x {FIT_T} steps ({steps} '
+    fe = FitEpochs(model, train, test, lambda n: (
+        FIT_PATHS, FIT_VALID_PATHS, n or steps, steps_test))
+    return fit_case(fe, steps, steps_test,
+                    f'GrBAL fit at {FIT_PATHS} train x {FIT_T} steps ({steps} '
                     f'meta-train steps + {steps_test} valid steps an epoch; '
                     'data drawn for timing only)', card)
 
@@ -1497,7 +1633,8 @@ def gauss_rows(norm, shape, gen):
 def mb_mpc_fit_phase(model, card):
     """Phase 10: the MB-MPC fit's epoch at full width on a dataset of the
     size its run holds by iteration 16 (15,300 train rows: 128 steps of
-    128 rows an epoch; validation over the padded 16,384-row test set)."""
+    128 rows an epoch; validation over the padded 16,384-row test set),
+    eager and captured."""
     import torch
     from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
     from learning_to_adapt_torch.models.mlp import PAD_CHUNK
@@ -1514,14 +1651,8 @@ def mb_mpc_fit_phase(model, card):
     steps = _bucket_pow2(max(MB_FIT_ROWS // model.batch_size, 1))
     if steps != 128:
         raise AssertionError(f'steps per epoch {steps}')
-    state = dict(params=model.params, opt_state=model.opt_state)
-
-    def epoch():
-        (state['params'], state['opt_state'], train_loss,
-         valid) = model.epoch_fn(state['params'], state['opt_state'],
-                                 model.normalizer, *staged, steps, gen)
-        return torch.stack([train_loss, valid]).tolist()
-    time_fit_epochs(epoch, steps,
+    fe = FitEpochs(model, *staged, lambda n: (n or steps,))
+    return fit_case(fe, steps, 1,
                     f'MB-MPC fit at {MB_FIT_ROWS} train rows ({steps} steps '
                     f'of {model.batch_size} rows an epoch + the padded '
                     f'{staged[1][0].shape[0]}-row validation; data drawn for '
@@ -1532,7 +1663,7 @@ def rebal_fit_phase(model, card):
     """Phase 11: the ReBAL fit's epoch at full width on a dataset of the
     size its run holds by iteration 16 (68 train paths x 1000 steps: 8
     steps of 10 paths an epoch, each 10 TBPTT chunks of 100 steps;
-    validation over the padded 64-path test set)."""
+    validation over the padded 64-path test set), eager and captured."""
     import torch
     from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
     from learning_to_adapt_torch.models.rnn import PATH_CHUNK
@@ -1549,20 +1680,47 @@ def rebal_fit_phase(model, card):
     steps = _bucket_pow2(max(RB_FIT_PATHS // model.batch_size, 1))
     if steps != 8 or FIT_T // model.backprop_steps != 10:
         raise AssertionError(f'steps per epoch {steps}')
-    state = dict(params=model.params, opt_state=model.opt_state)
-
-    def epoch():
-        (state['params'], state['opt_state'], train_loss,
-         valid) = model.epoch_fn(state['params'], state['opt_state'],
-                                 model.normalizer, staged[0][0], staged[1],
-                                 RB_FIT_PATHS, steps, gen)
-        return torch.stack([train_loss, valid]).tolist()
-    time_fit_epochs(epoch, steps,
+    fe = FitEpochs(model, staged[0][0], staged[1],
+                   lambda n: (RB_FIT_PATHS, n or steps))
+    return fit_case(fe, steps, 1,
                     f'ReBAL fit at {RB_FIT_PATHS} train paths x {FIT_T} '
                     f'steps ({steps} steps of {model.batch_size} paths, '
                     f'{FIT_T // model.backprop_steps} TBPTT chunks each, + '
                     f'the padded {staged[1][0].shape[0]}-path validation; '
                     'data drawn for timing only)', card)
+
+
+@contextlib.contextmanager
+def no_weight_compaction(what):
+    """Fails the phase when torch warns that the recurrent layer's weights
+    are not part of one contiguous chunk of memory (cuDNN then compacts
+    them at every call); other warnings are shown as usual."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        yield
+    bad = [w for w in caught if 'contiguous chunk' in str(w.message)]
+    for w in caught:
+        if w not in bad:
+            warnings.showwarning(w.message, w.category, w.filename,
+                                 w.lineno)
+    if bad:
+        raise AssertionError(f'{what}: {len(bad)} warnings that the weights '
+                             f'are compacted: {bad[0].message}')
+    log(f'{what}: no weight-compaction warning')
+
+
+def compiled_fits(model, what):
+    """Prints the compiled epochs a trainer's fits made (shape key, capture
+    seconds, replays) and fails if its fits ran none."""
+    entries = {str(k): dict(capture_s=round(e.capture_s, 3),
+                            train_replays=e.train.replays,
+                            valid_replays=e.valid.replays)
+               for k, e in model._epoch_cache.items()}
+    if not entries or not all(e.captured for e in
+                              model._epoch_cache.values()):
+        raise AssertionError(f'{what}: the fits ran no captured epoch')
+    log(f'{what}: captured fit epochs by shape key {json.dumps(entries)}')
 
 
 #: the keys of the JAX package's replay.npz (experiment_utils/sim_policy.py)
@@ -1935,23 +2093,22 @@ def multihost_nccl(dev, card):
                 f'{float(r["Post-Loss"]):.5f}')
 
         model = trainer.dynamics_model
+        compiled_fits(model, 'phase 17 (a) run_grbal_multihost (nccl)')
         gen = torch.Generator(device=dev)
         gen.manual_seed(7)
         train = fit_data(model, MH_WATCH_PATHS, gen)
         test = fit_data(model, MH_WATCH_VALID, gen)
         _, _, steps, steps_test = model._fit_shapes(
             MH_WATCH_PATHS, MH_WATCH_VALID, FIT_T)
-        state = dict(params=model.params, opt_state=model.opt_state)
+        fe = FitEpochs(model, train, test, lambda n: (
+            MH_WATCH_PATHS, MH_WATCH_VALID, n or steps, steps_test))
+        ce = fe.compiled
 
         def epoch():
-            (state['params'], state['opt_state'], post, pre,
-             valid) = model.epoch_fn(state['params'], state['opt_state'],
-                                     model.normalizer, train, test,
-                                     MH_WATCH_PATHS, MH_WATCH_VALID, steps,
-                                     steps_test, gen)
-            return torch.stack([post, pre, valid]).tolist()
+            return torch.stack(fe.captured(gen)).tolist()
         epoch()                                      # warm-up
         before = par_mesh.collective_counts()
+        replays = (ce.train.replays, ce.valid.replays)
         t0 = time.time()
         epoch()
         epoch_s = time.time() - t0
@@ -1960,12 +2117,21 @@ def multihost_nccl(dev, card):
         if coll != need:
             raise AssertionError(f'sharded epoch: collectives {coll} != '
                                  f'{need}')
-        log(f'phase 17 (a) sharded fit epoch (nccl, 1 rank) on {card}: '
-            f'{steps} meta-train + {steps_test} valid steps, {epoch_s:.3f} s '
-            f'= {epoch_s * 1e3 / (steps + steps_test):.3f} ms a step, '
-            f'collectives {json.dumps(coll)}')
+        done = (ce.train.replays - replays[0], ce.valid.replays - replays[1])
+        if done != (steps, steps_test):
+            raise AssertionError(f'sharded epoch: replays {done}')
+        log(f'phase 17 (a) sharded fit epoch (nccl, 1 rank, captured) on '
+            f'{card}: {steps} meta-train + {steps_test} valid steps, '
+            f'{epoch_s:.3f} s = {epoch_s * 1e3 / (steps + steps_test):.3f} '
+            f'ms a step, collectives {json.dumps(coll)}; per replay train '
+            f'{json.dumps(ce.train.collectives)}, valid '
+            f'{json.dumps(ce.valid.collectives)}; made by the warm-ups (not '
+            f'counted) train {json.dumps(ce.train.warmup_collectives)}, '
+            f'valid {json.dumps(ce.valid.warmup_collectives)}; capture '
+            f'{fe.capture_s:.3f} s')
         watch_host_syncs(epoch, steps, f'one sharded fit epoch of {steps} '
-                         'meta-train steps (nccl all_reduce each)')
+                         'meta-train steps (nccl all_reduce each, captured)',
+                         most=1)
     finally:
         os.chdir(cwd)
         mesh.close()
@@ -2249,16 +2415,28 @@ def main():
             raise AssertionError(f'{name}: sampling phase {launches[name]} '
                                  'launches, trainer policy iteration '
                                  f'{per_policy_itr[name]}')
-    fit_phase(trainer.dynamics_model, card)
+    compiled_fits(trainer.dynamics_model, 'GrBAL trainer')
+    fits = {'GrBAL': fit_phase(trainer.dynamics_model, card)}
     stamp('GrBAL trainer and fit')
     mb_itr, mb_total, mb_trainer = mb_mpc_trainer_phase(dev, card,
                                                         snap['mb_mpc'])
+    compiled_fits(mb_trainer.dynamics_model, 'MB-MPC trainer')
     stamp('MB-MPC trainer')
-    rb_itr, rb_total, rb_trainer = rebal_trainer_phase(dev, card,
-                                                       snap['rebal'])
+    with no_weight_compaction('ReBAL trainer'):
+        rb_itr, rb_total, rb_trainer = rebal_trainer_phase(dev, card,
+                                                           snap['rebal'])
+    compiled_fits(rb_trainer.dynamics_model, 'ReBAL trainer')
     stamp('ReBAL trainer')
-    mb_mpc_fit_phase(mb_trainer.dynamics_model, card)
-    rebal_fit_phase(rb_trainer.dynamics_model, card)
+    fits['MB-MPC'] = mb_mpc_fit_phase(mb_trainer.dynamics_model, card)
+    with no_weight_compaction('ReBAL fit'):
+        fits['ReBAL'] = rebal_fit_phase(rb_trainer.dynamics_model, card)
+    log(f'fits on {card}, ms per train step (CUDA events): ' + json.dumps(
+        {k: {m: dict(ms=round(r[m]['ms_step'], 4),
+                     device_ms=round(r[m]['device_ms_step'], 4),
+                     activities=round(r[m]['activities_step']),
+                     busy=round(r[m]['busy'], 3),
+                     host_waits=r[m]['host_waits'])
+             for m in ('eager', 'captured')} for k, r in fits.items()}))
     stamp('MB-MPC and ReBAL fits')
     env_itr = {}
     for cls_name, task, header, jacobi_key in NEW_ENVS:

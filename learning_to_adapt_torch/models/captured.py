@@ -1,0 +1,221 @@
+"""The fits' compiled epoch: a model's train step and validation step, each
+captured once as a CUDA graph and replayed (models/captured.py).
+
+The JAX package compiles a fit's whole epoch, two lax.scans of train and
+validation steps, with jax.jit and caches it by shape in `_epoch_cache`
+(MetaMLPDynamicsModel._get_epoch_fn, MLPDynamicsModel._get_epoch_fn and
+RNNDynamicsModel._get_epoch_fn; parallel/mesh.py jit_epoch_sharded under a
+mesh). This module is the port's stand-in for that jit and has no JAX
+module of the same name.
+
+Each model keeps one train step and one validation step, functions of a
+fit state (`new_state`) that they update in place: the parameters that
+autograd differentiates (requires_grad set once), Adam's count and
+moments, the staged data, the normalizer, the epoch's index table, a
+device step counter and the loss sums. Two callers run those steps:
+
+  eager      the model's epoch_fn builds a state for one epoch around the
+             tensors it is given and calls the steps from Python;
+  compiled   CompiledEpoch holds a state of static buffers for one shape
+             key, captures each step once (StepGraph) and replays it; the
+             fit copies its parameters, optimizer state, normalizer and
+             data in when it starts and copies fresh parameter tensors out
+             when it ends, so nothing a caller holds aliases the buffers
+             that the next fit overwrites.
+
+The rule (`captures`): a fit is compiled on a CUDA device, without a mesh
+or with a mesh over nccl, and eager on the CPU (the tests) and on a gloo
+mesh, whose collectives cannot be captured. Nothing falls back: a capture
+that fails raises from the fit.
+
+A step reads its random draws from the state's index table at the step
+counter, which it advances: the epoch's window indices, permutation or
+path indices are drawn eagerly, once an epoch, from the fit's generator
+and copied into the table, so no host int enters a graph and the
+generator needs no registration with one.
+
+Before its capture a step runs WARMUP times on a side stream, which sets
+up cuBLAS's and cuDNN's workspaces, autograd's lazy state and an NCCL
+communicator as the PyTorch CUDA-graph notes require; the warm-ups change
+the state, so the fit loads it after capturing. The collective counters
+of parallel/mesh.py count a captured step's collectives once a replay;
+the warm-ups' and the capture's are kept out of them, in the StepGraph.
+"""
+import time
+from types import SimpleNamespace
+
+import torch
+from torch.profiler import record_function
+
+from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
+from learning_to_adapt_torch.parallel import mesh as par_mesh
+
+WARMUP = 3  # step calls on a side stream before a capture
+
+
+def captures(device, mesh):
+    """True where a fit runs its compiled epoch: a CUDA device, with no
+    mesh or a mesh over nccl. On the CPU and over gloo it runs eagerly."""
+    return torch.device(device).type == 'cuda' and (
+        mesh is None or mesh.backend == 'nccl')
+
+
+def new_state(leaves, count, mu, nu, n_sums, **fields):
+    """A fit state: `leaves` are the step's parameter tensors (each with
+    storage of its own, or a view the model laid out), marked
+    requires_grad here; count, mu and nu are copies of Adam's state in the
+    leaves' layout; a step counter (int64, (1,)) and n_sums loss sums
+    (f32) start at 0; `fields` are the model's (data, normalizer, index
+    tables, ...)."""
+    for p in leaves:
+        p.requires_grad_(True)
+    dev = leaves[0].device
+    return SimpleNamespace(
+        leaves=leaves, count=count.detach().clone(),
+        mu=[m.detach().clone(memory_format=torch.contiguous_format)
+            for m in mu],
+        nu=[v.detach().clone(memory_format=torch.contiguous_format)
+            for v in nu],
+        counter=torch.zeros(1, dtype=torch.int64, device=dev),
+        sums=torch.zeros(n_sums, dtype=leaves[0].dtype, device=dev),
+        **fields)
+
+
+def clone_normalizer(norm):
+    return type(norm)(**{k: v.clone() for k, v in vars(norm).items()})
+
+
+@torch.no_grad()
+def load(st, to_step, params, opt_state, norm, train, test):
+    """Copies params and opt_state (trees, laid out for the state by
+    to_step: a tree's leaves in the state's order and layout), the
+    normalizer and the staged data into the state."""
+    dst = st.leaves + st.mu + st.nu + [st.count] + list(vars(
+        st.norm).values()) + tree_leaves((st.train, st.test))
+    src = (to_step(params) + to_step(opt_state['mu']) +
+           to_step(opt_state['nu']) + [opt_state['count']] +
+           list(vars(norm).values()) + tree_leaves((train, test)))
+    for d, s in zip(dst, src, strict=True):
+        d.copy_(s)
+
+
+def state_out(st, from_step, clone):
+    """(params, opt_state) trees of a state (from_step: a leaf list in the
+    state's order back to a tree of views): contiguous copies where clone
+    (the state lives on), else detached views where they are contiguous
+    (the state is dropped)."""
+    def out(leaves):
+        return tree_map(
+            lambda x: x.clone(memory_format=torch.contiguous_format)
+            if clone or not x.is_contiguous() else x,
+            from_step([x.detach() for x in leaves]))
+    return out(st.leaves), dict(
+        count=st.count.clone() if clone else st.count, mu=out(st.mu),
+        nu=out(st.nu))
+
+
+@torch.no_grad()
+def set_table(table, rows):
+    """Writes an epoch's draws into the first rows of an index table."""
+    table[:rows.shape[0]].copy_(rows)
+
+
+@torch.no_grad()
+def run_epoch(st, steps, steps_valid, train_step, valid_step):
+    """steps train steps, then steps_valid validation steps, from step
+    counter 0 and loss sums 0; each call is labelled 'fit.train_step' or
+    'fit.valid_step' for torch.profiler (a replayed graph's own labels
+    fire only at its capture). Nothing here waits for the device."""
+    st.counter.zero_()
+    st.sums.zero_()
+    for _ in range(steps):
+        with record_function('fit.train_step'):
+            train_step()
+    for _ in range(steps_valid):
+        with record_function('fit.valid_step'):
+            valid_step()
+
+
+def _diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+class StepGraph:
+    """fn() captured once as a CUDA graph (`capture`) and replayed by each
+    call; `replays` counts the calls. On a CPU device a call runs fn (the
+    tests drive a CompiledEpoch's state handling that way; fit runs
+    epoch_fn there)."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.graph = None
+        self.replays = 0
+        self.capture_s = 0.0
+        self.collectives = self.warmup_collectives = None
+
+    @torch.no_grad()
+    def capture(self, reset):
+        """WARMUP calls on a side stream, then one call under capture;
+        reset() runs before each (outside the graph). Raises if the
+        capture fails."""
+        t0 = time.perf_counter()
+        before = par_mesh.collective_counts()
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                reset()
+                self.fn()
+        stream.wait_stream(side)
+        reset()
+        warm = par_mesh.collective_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.fn()
+        torch.cuda.synchronize(self.device)
+        after = par_mesh.collective_counts()
+        self.warmup_collectives = _diff(warm, before)
+        self.collectives = _diff(after, warm)
+        par_mesh.count_collectives(
+            {k: -n for k, n in _diff(after, before).items()})
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self):
+        if self.device.type != 'cuda':
+            self.fn()
+            return
+        self.graph.replay()
+        self.replays += 1
+        par_mesh.count_collectives(self.collectives)
+
+
+class CompiledEpoch:
+    """One shape key's static fit state and its two steps, captured on
+    the first `prepare`, which loads the state (load(st)) before and, on
+    a capture, again after it."""
+
+    def __init__(self, state, train_step, valid_step, device):
+        self.state = state
+        self.train = StepGraph(lambda: train_step(state), device)
+        self.valid = StepGraph(lambda: valid_step(state), device)
+
+    @property
+    def captured(self):
+        return self.train.graph is not None
+
+    @property
+    def capture_s(self):
+        return self.train.capture_s + self.valid.capture_s
+
+    def prepare(self, load):
+        """load(state), capturing both steps first if they are not yet."""
+        load(self.state)
+        if self.captured or self.train.device.type != 'cuda':
+            return
+        reset = self.state.counter.zero_
+        self.train.capture(reset)
+        self.valid.capture(reset)
+        load(self.state)

@@ -10,12 +10,21 @@ Training batches are contiguous windows of 2*batch_size steps at random
 in f32 (torch.matmul, TF32 off: device.resolve_device); bf16 is the
 planner's prediction path only, in the fused-MLP kernel.
 
-A fit stages its dataset on the device once, draws the window indices on
-the device, and reads the losses back once per epoch, for the early stop:
-no train step waits for the device. The host RNG (numpy, seed + 1) is
-consumed exactly as the JAX package consumes it (one permutation per fit
-for the train/valid split, one draw that seeds the window generator), so
-every fit's split and aggregated buffers equal the JAX package's.
+A fit stages its dataset on the device once, draws each epoch's window
+indices on the device, and reads the losses back once per epoch, for the
+early stop: no train step waits for the device. The host RNG (numpy,
+seed + 1) is consumed exactly as the JAX package consumes it (one
+permutation per fit for the train/valid split, one draw that seeds the
+window generator), so every fit's split and aggregated buffers equal the
+JAX package's.
+
+The train step and the validation step are functions of a fit state that
+they update in place (models/captured.py). On a CUDA device, without a
+mesh or over nccl, the fit runs the compiled epoch: each step captured
+once as a CUDA graph per shape key (`compiled_epoch`, cached in
+_epoch_cache as the JAX package caches its jitted epoch) and replayed.
+On the CPU and over gloo it runs epoch_fn, which calls the same steps
+eagerly.
 
 With `model.mesh` set (parallel/mesh.py) every rank holds the whole host
 dataset (the sampler gathered it), so the split, the normalizer and the
@@ -33,12 +42,13 @@ import torch
 from torch.profiler import record_function
 
 from learning_to_adapt_torch.device import resolve_device
-from learning_to_adapt_torch.models import core
+from learning_to_adapt_torch.models import captured, core
 from learning_to_adapt_torch.models.normalizer import (
     Normalizer, normalizer_from_numpy, normalizer_to_numpy)
 from learning_to_adapt_torch.models.optim import (
     ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
-    state_from_jax_numpy, tree_to_numpy)
+    state_from_jax_numpy, tree_leaves, tree_to_numpy,
+    tree_unflatten)
 from learning_to_adapt_torch.ops.fused_mlp import PackedMLP, fused_mlp_forward
 from learning_to_adapt_torch.parallel import mesh as par_mesh
 
@@ -102,6 +112,7 @@ class MetaMLPDynamicsModel:
         self._rng = np.random.RandomState(seed + 1)
         self._adapted_params = None  # params with a leading env axis, or None
         self.mesh = None  # parallel/mesh.py: the fit's paths shard over 'env'
+        self._epoch_cache = {}  # shape key -> captured.CompiledEpoch
 
     # ----------------------------------------------------------- core math
     def _forward(self, params, x):
@@ -228,6 +239,12 @@ class MetaMLPDynamicsModel:
         par_mesh.stage_model_state(self)
         train = self.stage(self._train, cap_tr)
         test = self.stage(self._test, cap_te)
+        compiled = None
+        if captured.captures(self.device, self.mesh):
+            compiled = self.compiled_epoch(train, test)
+            compiled.prepare(lambda st: self._load_state(
+                st, self.params, self.opt_state, self.normalizer, train,
+                test))
 
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(self._rng.randint(1 << 31)))
@@ -235,10 +252,16 @@ class MetaMLPDynamicsModel:
         epoch = 0
         pre_loss = post_loss = float('nan')
         for epoch in range(epochs):
-            (self.params, self.opt_state, post, pre,
-             valid) = self.epoch_fn(self.params, self.opt_state,
-                                    self.normalizer, train, test, p_tr, p_te,
-                                    steps_per_epoch, steps_test, generator)
+            if compiled is None:
+                (self.params, self.opt_state, post, pre,
+                 valid) = self.epoch_fn(self.params, self.opt_state,
+                                        self.normalizer, train, test, p_tr,
+                                        p_te, steps_per_epoch, steps_test,
+                                        generator)
+            else:
+                post, pre, valid = self._epoch(
+                    compiled.state, p_tr, p_te, steps_per_epoch, steps_test,
+                    generator, None, compiled.train, compiled.valid)
             # the epoch's one read of device values, alike on every rank
             post_loss, pre_loss, valid_loss = torch.stack(
                 [post, pre, valid]).tolist()
@@ -256,86 +279,172 @@ class MetaMLPDynamicsModel:
             if valid_avg_prev < valid_avg or epoch == epochs - 1:
                 break
             valid_avg_prev = valid_avg
+        if compiled is not None:
+            self.params, self.opt_state = self._state_out(compiled.state,
+                                                          clone=True)
         if log_tabular and logger is not None:
             logger.logkv('Epochs', epoch)
             logger.logkv('Pre-Loss', pre_loss)
             logger.logkv('Post-Loss', post_loss)
         return dict(epochs=epoch, post_loss=post_loss)
 
-    def _windows(self, data, n_valid, span, generator, window=None):
-        """meta_bs windows of 2*bs steps from staged paths data: path index
-        in [0, n_valid), offset in [bs, T - bs), rows [off - bs, off + bs),
-        drawn on the device, or window = injected (pidx, offs). Returns
-        (obs, act, delta), each (meta_bs, 2*bs, d). With a mesh, data is
-        this rank's slice of the paths, the indices are global, and one
-        all_reduce assembles the windows on every rank."""
-        if window is None:
-            mbs, bs, dev = self.meta_batch_size, self.batch_size, data.device
-            pidx = torch.randint(0, n_valid, (mbs,), generator=generator,
-                                 device=dev)
-            # paths of exactly 2*bs steps have one offset, bs, which
-            # jax.random.randint gives when its bounds meet
-            offs = torch.randint(bs, max(data.shape[1] - bs, bs + 1), (mbs,),
-                                 generator=generator, device=dev)
-        else:
-            pidx, offs = window
+    # ------------------------------------------------ the fit's steps
+    def _fit_state(self, params, opt_state, norm, train, test, rows,
+                   static=False):
+        """The state the train and validation steps work on
+        (captured.new_state): copies of params and opt_state (leaves in
+        JAX's order), the normalizer and staged data (copies when static,
+        else these tensors), index tables of `rows` steps (path index and
+        window offset, each (rows, meta_batch_size), offsets bs at first)
+        and the loss sums (post, pre, valid)."""
+        keep = (lambda x: x.clone()) if static else (lambda x: x)
+        shape = (rows, self.meta_batch_size)
+        dev = train.device
+        return captured.new_state(
+            [p.detach().clone() for p in tree_leaves(params)],
+            opt_state['count'], tree_leaves(opt_state['mu']),
+            tree_leaves(opt_state['nu']), 3,
+            norm=captured.clone_normalizer(norm) if static else norm,
+            train=keep(train), test=keep(test),
+            pidx=torch.zeros(shape, dtype=torch.int64, device=dev),
+            offs=torch.full(shape, self.batch_size, dtype=torch.int64,
+                            device=dev),
+            span=torch.arange(-self.batch_size, self.batch_size, device=dev))
+
+    _step_layout = staticmethod(tree_leaves)  # the state's leaf order
+
+    def _from_step_layout(self, leaves):
+        return tree_unflatten(self.params, leaves)
+
+    def _load_state(self, st, params, opt_state, norm, train, test):
+        captured.load(st, self._step_layout, params, opt_state, norm, train,
+                      test)
+
+    def _state_out(self, st, clone):
+        """(params, opt_state) of a fit state: copies (clone) where the
+        state lives on, else detached views."""
+        return captured.state_out(st, self._from_step_layout, clone)
+
+    def compiled_epoch(self, train, test):
+        """The CompiledEpoch of staged train/test data's shape key
+        (capacities, path length, meta batch and batch size; as in the
+        JAX package's key, not the real path counts), made on first use:
+        its index tables hold the most steps any fit of these capacities
+        takes."""
+        key = (train.shape[0], test.shape[0], train.shape[1],
+               self.meta_batch_size, self.batch_size)
+        if key not in self._epoch_cache:
+            n_env = 1 if self.mesh is None else self.mesh.shape['env']
+            _, _, most, most_test = self._fit_shapes(
+                train.shape[0] * n_env, test.shape[0] * n_env,
+                train.shape[1])
+            st = self._fit_state(self.params, self.opt_state,
+                                 self.normalizer, train, test,
+                                 most + most_test, static=True)
+            self._epoch_cache[key] = captured.CompiledEpoch(
+                st, self._train_step, self._valid_step, self.device)
+        return self._epoch_cache[key]
+
+    def _window(self, st, data):
+        """The meta batch of windows at the step counter's row of the
+        index tables: path pidx, rows [off - bs, off + bs) of `data`.
+        Returns (obs, act, delta), each (meta_bs, 2*bs, d). With a mesh,
+        data is this rank's slice of the paths, the indices are global, and
+        one all_reduce assembles the windows on every rank."""
+        pidx = st.pidx.index_select(0, st.counter)[0]
+        offs = st.offs.index_select(0, st.counter)[0]
         w, = par_mesh.take_rows(self.mesh, (data,), pidx[:, None],
-                                offs[:, None] + span)
+                                offs[:, None] + st.span)
         return w.split([self.obs_dim, self.act_dim, self.obs_dim], dim=-1)
+
+    def _train_step(self, st):
+        """One meta-train step in place: the second-order meta loss on the
+        counter's windows of st.train ('fit.meta_loss'), its gradient
+        ('fit.meta_grad'), clip and Adam ('fit.adam'); adds post and pre
+        to the sums and advances the counter."""
+        o, a, d = self._window(st, st.train)
+        with torch.enable_grad():
+            with record_function('fit.meta_loss'):
+                post, pre = self.meta_loss_fn(
+                    self._from_step_layout(st.leaves), st.norm, o, a, d)
+            with record_function('fit.meta_grad'):
+                grads = torch.autograd.grad(post, st.leaves)
+        with record_function('fit.adam'):
+            self.optimizer.step_(st.leaves, list(grads), st.count, st.mu,
+                                 st.nu)
+        st.sums[:2].add_(torch.stack([post, pre]).detach())
+        st.counter.add_(1)
+
+    def _valid_step(self, st):
+        """One validation step: the plain pre-update loss of the params on
+        the counter's windows of st.test, added to the sums."""
+        o, a, d = self._window(st, st.test)
+        n = st.norm
+        st.sums[2].add_(self._mse(self._from_step_layout(st.leaves),
+                                  n.norm_obs(o), n.norm_act(a),
+                                  n.norm_delta(d)).mean())
+        st.counter.add_(1)
+
+    def _epoch(self, st, n_tr, n_te, steps, steps_test, generator, windows,
+               train_step, valid_step):
+        """Draws the epoch's windows (path index in [0, n_tr) for each train
+        step, then [0, n_te) for each validation step; offset in [bs,
+        T - bs)) from the generator, or takes windows = injected (pidx,
+        offs) of every step, into the index tables; runs the steps
+        (captured.run_epoch). Returns (post, pre, valid): 0-d device
+        tensors, means over the steps; with a mesh, one all_reduce takes
+        their max over the ranks, which hold the same values, so every
+        rank takes the same early stop."""
+        if windows is None:
+            mbs, bs = self.meta_batch_size, self.batch_size
+            dev, t_len = st.train.device, st.train.shape[1]
+
+            def draw(n, count):
+                pidx = torch.randint(0, n, (count, mbs), generator=generator,
+                                     device=dev)
+                # paths of exactly 2*bs steps have one offset, bs, which
+                # jax.random.randint gives when its bounds meet
+                offs = torch.randint(bs, max(t_len - bs, bs + 1),
+                                     (count, mbs), generator=generator,
+                                     device=dev)
+                return pidx, offs
+            (p_tr, o_tr), (p_te, o_te) = draw(n_tr, steps), draw(n_te,
+                                                                 steps_test)
+            pidx, offs = torch.cat([p_tr, p_te]), torch.cat([o_tr, o_te])
+        else:
+            pidx, offs = (torch.stack([w[k] for w in windows]).to(
+                st.pidx.device) for k in (0, 1))
+        captured.set_table(st.pidx, pidx)
+        captured.set_table(st.offs, offs)
+        captured.run_epoch(st, steps, steps_test, train_step, valid_step)
+        losses = torch.stack([st.sums[0] / steps, st.sums[1] / steps,
+                              st.sums[2] / steps_test])
+        return par_mesh.all_reduce(self.mesh, losses, op='max')
 
     @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_tr, n_te,
                  steps_per_epoch, steps_test, generator, windows=None):
-        """One epoch: steps_per_epoch meta-train steps (second-order meta
-        loss, clip, Adam) on windows of `train`, then steps_test validation
-        steps (the plain pre-update loss of the new params) on windows of
-        `test`. train/test: staged paths (see `stage`), the first n_tr /
-        n_te real. windows: optionally the (pidx, offs) of every train step,
-        then of every validation step, in place of the device draws.
-        Returns (params, opt_state, post, pre, valid): the losses are 0-d
-        device tensors, means over the epoch's steps. Nothing here waits
-        for the device. Each step is labelled for torch.profiler:
-        'fit.train_step' (inside it 'fit.meta_loss', the forward with the
-        inner step; 'fit.meta_grad', the backward through it; 'fit.adam',
-        clip and Adam) and 'fit.valid_step'. With a mesh, one all_reduce a
-        step assembles its windows (`_windows`) and one more, at the end,
-        takes the losses' max over the ranks, which hold the same values,
-        so every rank takes the same early stop."""
-        bs = self.batch_size
-        span = torch.arange(-bs, bs, device=train.device)
-        n_w = len(params['w'])
-        posts, pres = [], []
-        for i in range(steps_per_epoch):
-            with record_function('fit.train_step'):
-                o, a, d = self._windows(train, n_tr, span, generator,
-                                        windows and windows[i])
-                leaves = [p.detach().requires_grad_(True)
-                          for p in _leaves(params)]
-                with torch.enable_grad():
-                    with record_function('fit.meta_loss'):
-                        post, pre = self.meta_loss_fn(_tree(leaves, n_w),
-                                                      norm, o, a, d)
-                    with record_function('fit.meta_grad'):
-                        grads = torch.autograd.grad(post, leaves)
-                with record_function('fit.adam'):
-                    params, opt_state = self.optimizer.update(
-                        _tree(grads, n_w), opt_state, params)
-                posts.append(post.detach())
-                pres.append(pre.detach())
-        valids = []
-        for i in range(steps_test):
-            with record_function('fit.valid_step'):
-                o, a, d = self._windows(
-                    test, n_te, span, generator,
-                    windows and windows[steps_per_epoch + i])
-                valids.append(self._mse(params, norm.norm_obs(o),
-                                        norm.norm_act(a),
-                                        norm.norm_delta(d)).mean())
-        losses = torch.stack([torch.stack(posts).mean(),
-                              torch.stack(pres).mean(),
-                              torch.stack(valids).mean()])
-        losses = par_mesh.all_reduce(self.mesh, losses, op='max')
-        return (params, opt_state, *losses)
+        """One epoch, run eagerly: steps_per_epoch meta-train steps
+        (second-order meta loss, clip, Adam) on windows of `train`, then
+        steps_test validation steps (the plain pre-update loss of the new
+        params) on windows of `test`. train/test: staged paths (see
+        `stage`), the first n_tr / n_te real. windows: optionally the
+        (pidx, offs) of every train step, then of every validation step,
+        in place of the device draws. Returns (params, opt_state, post,
+        pre, valid): the losses are 0-d device tensors, means over the
+        epoch's steps. Nothing here waits for the device. The steps are
+        the compiled epoch's (`_train_step`, `_valid_step`) on a state
+        made for this epoch, labelled 'fit.train_step' and
+        'fit.valid_step' for torch.profiler. With a mesh, one all_reduce a
+        step assembles its windows and one more, at the end, takes the
+        losses' max over the ranks."""
+        st = self._fit_state(params, opt_state, norm, train, test,
+                             steps_per_epoch + steps_test)
+        losses = self._epoch(st, n_tr, n_te, steps_per_epoch, steps_test,
+                             generator, windows,
+                             lambda: self._train_step(st),
+                             lambda: self._valid_step(st))
+        return (*self._state_out(st, clone=False), *losses)
 
     # ------------------------------------------------------------- adapt
     def adapt_fn(self, params, norm, obs, act, obs_next):

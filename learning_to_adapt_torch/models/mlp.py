@@ -23,6 +23,14 @@ RNG (numpy, seed + 1) is consumed as the JAX package consumes it: one
 permutation per fit for the split and one draw that seeds the device
 generator of the epochs' permutations.
 
+The train step and the validation step are functions of a fit state that
+they update in place (models/captured.py). On a CUDA device, without a
+mesh or over nccl, the fit runs the compiled epoch: each step captured
+once as a CUDA graph per shape key (`compiled_epoch`, cached in
+_epoch_cache as the JAX package caches its jitted epoch) and replayed,
+the epoch's permutation drawn eagerly into the step's index table. On the
+CPU and over gloo it runs epoch_fn, which calls the same steps eagerly.
+
 With `model.mesh` set (parallel/mesh.py) the fit is data parallel: every
 rank holds the whole host dataset (the sampler gathered it) and draws the
 same permutation, but stages only its slice of the padded rows. A train
@@ -38,17 +46,16 @@ code runs with no collective.
 """
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from learning_to_adapt_torch.device import resolve_device
-from learning_to_adapt_torch.models import core
+from learning_to_adapt_torch.models import captured, core
 from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
 from learning_to_adapt_torch.models.normalizer import (
     Normalizer, normalizer_from_numpy, normalizer_to_numpy)
 from learning_to_adapt_torch.models.optim import (
     ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
-    state_from_jax_numpy, tree_from_numpy, tree_leaves, tree_to_numpy,
-    tree_unflatten)
+    state_from_jax_numpy, tree_from_numpy, tree_leaves,
+    tree_to_numpy, tree_unflatten)
 from learning_to_adapt_torch.ops.fused_mlp import (
     PackedMLP, fused_mlp_forward, pack_weights)
 from learning_to_adapt_torch.parallel import mesh as par_mesh
@@ -111,6 +118,7 @@ class MLPDynamicsModel:
         self._test = None
         self._rng = np.random.RandomState(seed + 1)
         self.mesh = None  # parallel/mesh.py: the fit's rows shard over 'env'
+        self._epoch_cache = {}  # shape key -> captured.CompiledEpoch
 
     # ------------------------------------------------------------------ fit
     def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
@@ -156,6 +164,12 @@ class MLPDynamicsModel:
         train, test = self.stage(self._train), self.stage(self._test)
         n_train = self._train['obs'].shape[0]
         n_batches = _bucket_pow2(max(n_train // self.batch_size, 1))
+        compiled = None
+        if captured.captures(self.device, self.mesh):
+            compiled = self.compiled_epoch(train, test)
+            compiled.prepare(lambda st: self._load_state(
+                st, self.params, self.opt_state, self.normalizer, train,
+                test))
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(self._rng.randint(1 << 31)))
 
@@ -163,10 +177,15 @@ class MLPDynamicsModel:
         epoch = 0
         train_loss = float('nan')
         for epoch in range(epochs):
-            (self.params, self.opt_state, train_t,
-             valid_t) = self.epoch_fn(self.params, self.opt_state,
-                                      self.normalizer, train, test,
-                                      n_batches, generator)
+            if compiled is None:
+                (self.params, self.opt_state, train_t,
+                 valid_t) = self.epoch_fn(self.params, self.opt_state,
+                                          self.normalizer, train, test,
+                                          n_batches, generator)
+            else:
+                train_t, valid_t = self._epoch(
+                    compiled.state, n_batches, generator, None,
+                    compiled.train, compiled.valid)
             # the epoch's one read of device values, alike on every rank
             train_loss, valid_loss = torch.stack([train_t, valid_t]).tolist()
             if valid_avg is None:
@@ -183,6 +202,9 @@ class MLPDynamicsModel:
             if valid_avg_prev < valid_avg or epoch == epochs - 1:
                 break
             valid_avg_prev = valid_avg
+        if compiled is not None:
+            self.params, self.opt_state = self._state_out(compiled.state,
+                                                          clone=True)
         if log_tabular and logger is not None:
             logger.logkv('Epochs', epoch)
             logger.logkv('TrainLoss', train_loss)
@@ -221,48 +243,124 @@ class MLPDynamicsModel:
         num, den = self.loss_terms(params, norm, rows, w)
         return num / torch.clamp(den, min=1.0)
 
+    # ------------------------------------------------ the fit's steps
+    def _fit_state(self, params, opt_state, norm, train, test, rows,
+                   static=False):
+        """The state the train and validation steps work on
+        (captured.new_state): copies of params and opt_state (leaves in
+        JAX's order), the normalizer and staged (rows, weights) (copies
+        when static, else these tensors), an index table of `rows`
+        minibatches, (rows, batch_size), and the loss sums (train,
+        valid)."""
+        keep = (lambda x: x.clone()) if static else (lambda x: x)
+        return captured.new_state(
+            [p.detach().clone() for p in tree_leaves(params)],
+            opt_state['count'], tree_leaves(opt_state['mu']),
+            tree_leaves(opt_state['nu']), 2,
+            norm=captured.clone_normalizer(norm) if static else norm,
+            train=tuple(map(keep, train)), test=tuple(map(keep, test)),
+            sel=torch.zeros((rows, self.batch_size), dtype=torch.int64,
+                            device=train[0].device))
+
+    _step_layout = staticmethod(tree_leaves)  # the state's leaf order
+
+    def _from_step_layout(self, leaves):
+        return tree_unflatten(self.params, leaves)
+
+    def _load_state(self, st, params, opt_state, norm, train, test):
+        captured.load(st, self._step_layout, params, opt_state, norm, train,
+                      test)
+
+    def _state_out(self, st, clone):
+        """(params, opt_state) of a fit state: copies (clone) where the
+        state lives on, else detached views."""
+        return captured.state_out(st, self._from_step_layout, clone)
+
+    def compiled_epoch(self, train, test):
+        """The CompiledEpoch of staged train/test data's shape key (the
+        train and test capacities and the batch size), made on first use:
+        its index table holds the most minibatches any fit of this train
+        capacity takes."""
+        rows = train[0].shape[0]
+        key = (rows, test[0].shape[0], self.batch_size)
+        if key not in self._epoch_cache:
+            n_env = 1 if self.mesh is None else self.mesh.shape['env']
+            most = _bucket_pow2(max(rows * n_env // self.batch_size, 1))
+            st = self._fit_state(self.params, self.opt_state,
+                                 self.normalizer, train, test, most,
+                                 static=True)
+            self._epoch_cache[key] = captured.CompiledEpoch(
+                st, self._train_step, self._valid_step, self.device)
+        return self._epoch_cache[key]
+
+    def _train_step(self, st):
+        """One train step in place: the minibatch at the step counter's row
+        of the index table (with a mesh, assembled by one all_reduce), the
+        loss of this rank's share of it and its gradient, one all_reduce
+        summing gradients and loss over the ranks, clip and Adam; adds the
+        loss to the sums and advances the counter."""
+        mesh = self.mesh
+        rows, w = st.train
+        mb_rows, mb_w = par_mesh.take_rows(
+            mesh, (rows, w), st.sel.index_select(0, st.counter)[0])
+        share = par_mesh.batch_share(mesh, self.batch_size)
+        with torch.enable_grad():
+            num, _ = self.loss_terms(self._from_step_layout(st.leaves),
+                                     st.norm, mb_rows[share], mb_w[share])
+            loss = num / torch.clamp(mb_w.sum(), min=1.0)
+            grads = torch.autograd.grad(loss, st.leaves)
+        *grads, loss = par_mesh.all_reduce_flat(
+            mesh, list(grads) + [loss.detach()])
+        self.optimizer.step_(st.leaves, grads, st.count, st.mu, st.nu)
+        st.sums[0].add_(loss)
+        st.counter.add_(1)
+
+    def _valid_step(self, st):
+        """The loss on the whole padded test set (with a mesh, its terms
+        summed over the ranks by one all_reduce) into the sums."""
+        num, den = par_mesh.all_reduce_flat(self.mesh, list(self.loss_terms(
+            self._from_step_layout(st.leaves), st.norm, *st.test)))
+        st.sums[1].add_(num / torch.clamp(den, min=1.0))
+
+    def _epoch(self, st, n_batches, generator, perm, train_step,
+               valid_step):
+        """n_batches minibatches of batch_size rows taken in the order of a
+        permutation of the padded train capacity (`perm`, or one drawn on
+        the device; with a mesh, of the global capacity) into the index
+        table, each a train step; then the validation step. Returns (mean
+        train loss, valid loss), 0-d device tensors."""
+        if perm is None:
+            rows = st.train[0]
+            cap = rows.shape[0] * (1 if self.mesh is None
+                                   else self.mesh.shape['env'])
+            perm = torch.randperm(cap, generator=generator,
+                                  device=rows.device)
+        bs = self.batch_size
+        captured.set_table(st.sel, perm[:n_batches * bs].reshape(n_batches,
+                                                                 bs))
+        captured.run_epoch(st, n_batches, 1, train_step, valid_step)
+        return st.sums[0] / n_batches, st.sums[1].clone()
+
     @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_batches,
                  generator, perm=None):
-        """One epoch: n_batches minibatches of batch_size rows taken in the
-        order of a permutation of the padded train capacity (`perm`, or one
-        drawn on the device), each a loss, gradient, clip and Adam step;
-        then the loss on the whole padded test set. train/test: staged (see
-        `stage`; with a mesh, this rank's slice of the rows, and perm one
-        of the global capacity). Returns (params, opt_state, mean train loss,
-        valid loss), the losses 0-d device tensors; nothing here waits for
-        the device. Each step is labelled 'fit.train_step' for
+        """One epoch, run eagerly: n_batches minibatches of batch_size rows
+        taken in the order of a permutation of the padded train capacity
+        (`perm`, or one drawn on the device), each a loss, gradient, clip
+        and Adam step; then the loss on the whole padded test set.
+        train/test: staged (see `stage`; with a mesh, this rank's slice of
+        the rows, and perm one of the global capacity). Returns (params,
+        opt_state, mean train loss, valid loss), the losses 0-d device
+        tensors; nothing here waits for the device. The steps are the
+        compiled epoch's (`_train_step`, `_valid_step`) on a state made
+        for this epoch, labelled 'fit.train_step' and 'fit.valid_step' for
         torch.profiler."""
-        rows, w = train
-        bs = self.batch_size
-        mesh = self.mesh
-        if perm is None:
-            cap = rows.shape[0] * (1 if mesh is None else mesh.shape['env'])
-            perm = torch.randperm(cap, generator=generator,
-                                  device=rows.device)
-        sel = perm[:n_batches * bs].reshape(n_batches, bs)
-        share = par_mesh.batch_share(mesh, bs)
-        losses = []
-        for i in range(n_batches):
-            with record_function('fit.train_step'):
-                mb_rows, mb_w = par_mesh.take_rows(mesh, (rows, w), sel[i])
-                leaves = [p.detach().requires_grad_(True)
-                          for p in tree_leaves(params)]
-                with torch.enable_grad():
-                    num, _ = self.loss_terms(tree_unflatten(params, leaves),
-                                             norm, mb_rows[share],
-                                             mb_w[share])
-                    loss = num / torch.clamp(mb_w.sum(), min=1.0)
-                    grads = torch.autograd.grad(loss, leaves)
-                *grads, loss = par_mesh.all_reduce_flat(
-                    mesh, list(grads) + [loss.detach()])
-                params, opt_state = self.optimizer.update(
-                    tree_unflatten(params, grads), opt_state, params)
-                losses.append(loss)
-        num, den = par_mesh.all_reduce_flat(
-            mesh, list(self.loss_terms(params, norm, *test)))
-        valid = num / torch.clamp(den, min=1.0)
-        return params, opt_state, torch.stack(losses).mean(), valid
+        st = self._fit_state(params, opt_state, norm, train, test,
+                             n_batches)
+        losses = self._epoch(st, n_batches, generator, perm,
+                             lambda: self._train_step(st),
+                             lambda: self._valid_step(st))
+        return (*self._state_out(st, clone=False), *losses)
 
     # -------------------------------------------------------------- predict
     def _grouped(self, params):

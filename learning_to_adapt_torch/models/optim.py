@@ -56,7 +56,12 @@ class ClipAdam:
     g / norm * max_norm` (not clip_grad_norm_'s max_norm / (norm + 1e-6)),
     then Adam with optax's bias correction. The state is dict(count, mu,
     nu), mu and nu shaped as the params, on the params' device; nothing here
-    reads a device value on the host."""
+    reads a device value on the host.
+
+    `step_` is the one definition of the arithmetic: it updates leaf lists
+    in place (the fits' static state, which a CUDA graph replays), with
+    torch._foreach_* ops over all leaves at once. `update` is its
+    functional form on trees."""
 
     def __init__(self, learning_rate, max_norm=100.0, b1=0.9, b2=0.999,
                  eps=1e-8):
@@ -71,24 +76,50 @@ class ClipAdam:
                     mu=tree_map(torch.zeros_like, params),
                     nu=tree_map(torch.zeros_like, params))
 
-    def update(self, grads, state, params):
-        """Returns (new params, new state)."""
+    @torch.no_grad()
+    def step_(self, params, grads, count, mu, nu):
+        """One clip + Adam step in place: params, mu and nu are lists of
+        leaves in JAX's order (any layout, the same for all four lists),
+        grads the gradients (overwritten: clipped), count the int32 0-d
+        step count. Each product and sum is rounded on its own, in optax's
+        order; the clip is a select on the device."""
         b1, b2 = self.b1, self.b2
-        g = tree_leaves(grads)
-        norm = torch.sqrt(sum(torch.sum(torch.square(x)) for x in g))
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
         keep = norm < self.max_norm
-        g = [torch.where(keep, x, x / norm * self.max_norm) for x in g]
-        mu = [(1 - b1) * x + b1 * m
-              for x, m in zip(g, tree_leaves(state['mu']))]
-        nu = [(1 - b2) * torch.square(x) + b2 * v
-              for x, v in zip(g, tree_leaves(state['nu']))]
-        count = state['count'] + 1
-        c = count.to(g[0].dtype)
+        # g / 1 * 1 when kept, else optax's g / norm * max_norm
+        one = torch.ones((), dtype=norm.dtype, device=norm.device)
+        torch._foreach_div_(grads, torch.where(keep, one, norm))
+        torch._foreach_mul_(grads, torch.where(keep, one,
+                                               one * self.max_norm))
+        # mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1 - b2)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, sq)
+        count.add_(1)
+        c = count.to(norm.dtype)
         bc1 = 1 - torch.pow(b1, c)
         bc2 = 1 - torch.pow(b2, c)
-        lr = self.learning_rate
-        new = [p - lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
-               for p, m, v in zip(tree_leaves(params), mu, nu)]
+        # p - lr * (mu / bc1) / (sqrt(nu / bc2) + eps)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, self.learning_rate)
+        torch._foreach_sub_(params, upd)
+
+    def update(self, grads, state, params):
+        """Returns (new params, new state): step_ on copies."""
+        new = [p.detach().clone() for p in tree_leaves(params)]
+        count = state['count'].clone()
+        mu = [m.clone() for m in tree_leaves(state['mu'])]
+        nu = [v.clone() for v in tree_leaves(state['nu'])]
+        self.step_(new, [g.clone() for g in tree_leaves(grads)], count, mu,
+                   nu)
         return tree_unflatten(params, new), dict(
             count=count, mu=tree_unflatten(params, mu),
             nu=tree_unflatten(params, nu))

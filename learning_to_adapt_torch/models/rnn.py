@@ -25,6 +25,17 @@ The host RNG (numpy, seed + 1) is consumed as the JAX package consumes it:
 one permutation of the paths per fit for the split and one draw that seeds
 the device generator of the path indices.
 
+The train step and the validation step are functions of a fit state that
+they update in place (models/captured.py), which holds each layer's
+weights in cuDNN's layout, one buffer a layer (`_layer_buffers`), mapped
+from and to the JAX-layout tree when a fit starts and ends. On a CUDA
+device, without a mesh or over nccl, the fit runs the compiled epoch: each
+step captured once as a CUDA graph per shape key (`compiled_epoch`, cached
+in _epoch_cache as the JAX package caches its jitted epoch) and replayed,
+the epoch's path indices drawn eagerly into the step's index table. On
+the CPU and over gloo it runs epoch_fn, which calls the same steps
+eagerly.
+
 With `model.mesh` set (parallel/mesh.py) the fit is data parallel: every
 rank holds the whole host dataset (the sampler gathered it) and draws the
 same path indices, but stages only its slice of the padded paths. A train
@@ -39,10 +50,9 @@ f32 reduction order. Without a mesh the same code runs with no collective.
 """
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from learning_to_adapt_torch.device import resolve_device
-from learning_to_adapt_torch.models import core
+from learning_to_adapt_torch.models import captured, core
 from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
 from learning_to_adapt_torch.models.normalizer import (
     Normalizer, normalizer_from_numpy, normalizer_to_numpy)
@@ -102,6 +112,7 @@ class RNNDynamicsModel:
         self._test = None
         self._rng = np.random.RandomState(seed + 1)
         self.mesh = None  # parallel/mesh.py: the fit's paths shard over 'env'
+        self._epoch_cache = {}  # shape key -> captured.CompiledEpoch
 
     # ------------------------------------------------------------- forward
     def get_initial_hidden(self, batch_size):
@@ -119,13 +130,19 @@ class RNNDynamicsModel:
                                    self.output_nonlinearity)
         return tuple(new_hidden), delta_n
 
-    def _layer_seq(self, i, cell, x, h):
-        """x (B, T, in) through layer i from hidden h, in torch's recurrent
-        layer op (torch.lstm / gru / rnn_tanh: cuDNN on the card) with this
-        cell's weights in torch's (kH, in) layout, which cuDNN copies into
-        its own buffer each call (it views them, so they are contiguous)."""
-        weights = [cell['wi'].T.contiguous(), cell['wh'].T.contiguous(),
-                   cell['b'], self._hidden_bias[i]]
+    def _torch_weights(self, i, cell):
+        """Layer i's weights as torch's recurrent ops take them, [w_ih (kH,
+        in), w_hh (kH, H), b_ih, b_hh], from a cell of the JAX-layout tree:
+        fresh copies, which cuDNN compacts into one buffer at each call.
+        The fit holds them in that buffer from the start
+        (`_layer_buffers`)."""
+        return [cell['wi'].T.contiguous(), cell['wh'].T.contiguous(),
+                cell['b'], self._hidden_bias[i]]
+
+    def _layer_seq(self, weights, x, h):
+        """x (B, T, in) through one layer from hidden h, in torch's
+        recurrent layer op (torch.lstm / gru / rnn_tanh: cuDNN on the
+        card) with the layer's `weights` ([w_ih, w_hh, b_ih, b_hh])."""
         # cuDNN keeps what its backward needs only in training mode
         args = (weights, True, 1, 0.0, torch.is_grad_enabled(), False, True)
         if self.cell_type == 'lstm':
@@ -135,17 +152,23 @@ class RNNDynamicsModel:
         out, hn = op(x, h[None], *args)
         return out, hn[0]
 
+    def _seq(self, layers, out, norm, obs, act, hidden):
+        """forward_seq over each layer's torch weights `layers` and the
+        output layer's params `out`."""
+        x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
+        new_hidden = []
+        for weights, h in zip(layers, hidden):
+            x, h2 = self._layer_seq(weights, x, h)
+            new_hidden.append(h2)
+        delta_n = core.mlp_forward(out, x, None, self.output_nonlinearity)
+        return delta_n, tuple(new_hidden)
+
     def forward_seq(self, params, norm, obs, act, hidden):
         """obs/act: (B, T, d). Returns (normalized delta predictions (B, T,
         obs_dim), hidden after the last step)."""
-        x = torch.cat([norm.norm_obs(obs), norm.norm_act(act)], dim=-1)
-        new_hidden = []
-        for i, (cell, h) in enumerate(zip(params['cells'], hidden)):
-            x, h2 = self._layer_seq(i, cell, x, h)
-            new_hidden.append(h2)
-        delta_n = core.mlp_forward(params['out'], x, None,
-                                   self.output_nonlinearity)
-        return delta_n, tuple(new_hidden)
+        return self._seq([self._torch_weights(i, c)
+                          for i, c in enumerate(params['cells'])],
+                         params['out'], norm, obs, act, hidden)
 
     def predict_fn(self, params, norm, obs, act, hidden):
         """One step from hidden for rows obs/act (B, d), by the cell
@@ -203,6 +226,12 @@ class RNNDynamicsModel:
         train, _ = self.stage(self._train)
         test = self.stage(self._test)
         n_batches = _bucket_pow2(max(p_tr // self.batch_size, 1))
+        compiled = None
+        if captured.captures(self.device, self.mesh):
+            compiled = self.compiled_epoch(train, test)
+            compiled.prepare(lambda st: self._load_state(
+                st, self.params, self.opt_state, self.normalizer, train,
+                test))
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(self._rng.randint(1 << 31)))
 
@@ -210,10 +239,15 @@ class RNNDynamicsModel:
         epoch = 0
         train_loss = float('nan')
         for epoch in range(epochs):
-            (self.params, self.opt_state, train_t,
-             valid_t) = self.epoch_fn(self.params, self.opt_state,
-                                      self.normalizer, train, test, p_tr,
-                                      n_batches, generator)
+            if compiled is None:
+                (self.params, self.opt_state, train_t,
+                 valid_t) = self.epoch_fn(self.params, self.opt_state,
+                                          self.normalizer, train, test, p_tr,
+                                          n_batches, generator)
+            else:
+                train_t, valid_t = self._epoch(
+                    compiled.state, p_tr, n_batches, generator, None,
+                    compiled.train, compiled.valid)
             # the epoch's one read of device values, alike on every rank
             train_loss, valid_loss = torch.stack([train_t, valid_t]).tolist()
             if valid_avg is None:
@@ -229,6 +263,9 @@ class RNNDynamicsModel:
             if valid_avg_prev < valid_avg or epoch == epochs - 1:
                 break
             valid_avg_prev = valid_avg
+        if compiled is not None:
+            self.params, self.opt_state = self._state_out(compiled.state,
+                                                          clone=True)
         if log_tabular and logger is not None:
             logger.logkv('Epochs', epoch)
             logger.logkv('TrainLoss', train_loss)
@@ -253,73 +290,191 @@ class RNNDynamicsModel:
         return paths.split([self.obs_dim, self.act_dim, self.obs_dim],
                            dim=-1)
 
-    def tbptt_loss(self, params, norm, obs, act, delta):
+    def tbptt_loss(self, layers, out, norm, obs, act, delta):
         """Mean over the chunks of each chunk's mean squared error, the
         hidden state carried across chunks with its gradient stopped: its
         gradient is the chunks' gradients averaged. Chunks of
-        backprop_steps steps, max(T // backprop_steps, 1) of them."""
+        backprop_steps steps, max(T // backprop_steps, 1) of them. layers,
+        out: as `_seq` takes them."""
         bp = self.backprop_steps
         n_chunks = max(obs.shape[1] // bp, 1)
         hidden = self.get_initial_hidden(obs.shape[0])
         total = 0.0
         for c in range(n_chunks):
             span = slice(c * bp, (c + 1) * bp)
-            pred, hidden = self.forward_seq(params, norm, obs[:, span],
-                                            act[:, span], hidden)
+            pred, hidden = self._seq(layers, out, norm, obs[:, span],
+                                     act[:, span], hidden)
             total = total + torch.mean(torch.square(
                 pred - norm.norm_delta(delta[:, span])))
             hidden = tree_map(torch.Tensor.detach, hidden)
         return total / n_chunks
 
-    def valid_terms(self, params, norm, test):
+    def valid_terms(self, layers, out, norm, test):
         """(each test path's mean squared error weighted by its mask and
         summed, the mask's sum) over the padded test paths."""
         paths, w = test
         obs, act, delta = self._split(paths)
-        pred, _ = self.forward_seq(params, norm, obs, act,
-                                   self.get_initial_hidden(paths.shape[0]))
+        pred, _ = self._seq(layers, out, norm, obs, act,
+                            self.get_initial_hidden(paths.shape[0]))
         err = torch.mean(torch.square(pred - norm.norm_delta(delta)),
                          dim=(1, 2))
         return torch.sum(err * w), w.sum()
 
+    # ------------------------------------------------ the fit's steps
+    def _layer_buffers(self):
+        """Each layer's weights in cuDNN's layout: one buffer of its own a
+        layer, viewed as [w_ih (kH, in), w_hh (kH, H), b_ih, b_hh] in that
+        order, so torch's recurrent op hands the buffer to cuDNN as it is
+        (it compacts weights held anywhere else at every call). b_hh holds
+        the constant hidden-side bias."""
+        layers = []
+        in_dim = self.obs_dim + self.act_dim
+        for i, h in enumerate(self.hidden_sizes):
+            kh = self._hidden_bias[i].shape[0]
+            sizes = (kh * in_dim, kh * h, kh, kh)
+            buf = torch.empty(sum(sizes), dtype=self.dtype,
+                              device=self.device)
+            w_ih, w_hh, b_ih, b_hh = buf.split(sizes)
+            b_hh.copy_(self._hidden_bias[i])
+            # detach: each trained view its own autograd leaf
+            layers.append([w_ih.view(kh, in_dim).detach(),
+                           w_hh.view(kh, h).detach(), b_ih.detach(), b_hh])
+            in_dim = h
+        return layers
+
+    @staticmethod
+    def _step_layout(tree):
+        """A params-shaped tree's leaves in JAX's order, each cell's as the
+        fit holds them: [b, wh.T, wi.T] (views)."""
+        return [x for cell in tree['cells']
+                for x in (cell['b'], cell['wh'].T, cell['wi'].T)
+                ] + tree_leaves(tree['out'])
+
+    def _from_step_layout(self, leaves):
+        """The JAX-layout tree of leaves in `_step_layout` order (views)."""
+        n = 3 * len(self.hidden_sizes)
+        cells = [dict(wi=wi.T, wh=wh.T, b=b)
+                 for b, wh, wi in zip(*[iter(leaves[:n])] * 3)]
+        out = tree_unflatten(self.params['out'], leaves[n:])
+        return {'cells': cells, 'out': out}
+
+    def _fit_state(self, params, opt_state, norm, train, test, rows,
+                   static=False):
+        """The state the train and validation steps work on
+        (captured.new_state): params copied into `_layer_buffers` and the
+        output layer, Adam's state in the same layout, the normalizer and
+        staged data (copies when static, else these tensors), an index
+        table of `rows` steps' path indices, (rows, batch_size), and the
+        loss sums (train, valid)."""
+        layers = self._layer_buffers()
+        out = tree_map(torch.empty_like, params['out'])
+        leaves = [x for w_ih, w_hh, b_ih, _ in layers
+                  for x in (b_ih, w_hh, w_ih)] + tree_leaves(out)
+        with torch.no_grad():
+            for dst, src in zip(leaves, self._step_layout(params)):
+                dst.copy_(src)
+        keep = (lambda x: x.clone()) if static else (lambda x: x)
+        return captured.new_state(
+            leaves, opt_state['count'], self._step_layout(opt_state['mu']),
+            self._step_layout(opt_state['nu']), 2, layers=layers, out=out,
+            norm=captured.clone_normalizer(norm) if static else norm,
+            train=keep(train), test=tuple(map(keep, test)),
+            path_idx=torch.zeros((rows, self.batch_size), dtype=torch.int64,
+                                 device=train.device))
+
+    def _load_state(self, st, params, opt_state, norm, train, test):
+        captured.load(st, self._step_layout, params, opt_state, norm, train,
+                      test)
+
+    def _state_out(self, st, clone):
+        """(params, opt_state) of a fit state in the JAX layout: copies
+        (clone) where the state lives on, else detached views where they
+        are contiguous."""
+        return captured.state_out(st, self._from_step_layout, clone)
+
+    def compiled_epoch(self, train, test):
+        """The CompiledEpoch of staged train/test data's shape key (the
+        train and test capacities, the path length and the batch size),
+        made on first use: its index table holds the most steps any fit of
+        this train capacity takes."""
+        key = (train.shape[0], test[0].shape[0], train.shape[1],
+               self.batch_size)
+        if key not in self._epoch_cache:
+            n_env = 1 if self.mesh is None else self.mesh.shape['env']
+            most = _bucket_pow2(max(train.shape[0] * n_env //
+                                    self.batch_size, 1))
+            st = self._fit_state(self.params, self.opt_state,
+                                 self.normalizer, train, test, most,
+                                 static=True)
+            self._epoch_cache[key] = captured.CompiledEpoch(
+                st, self._train_step, self._valid_step, self.device)
+        return self._epoch_cache[key]
+
+    def _train_step(self, st):
+        """One train step in place: the batch_size paths at the step
+        counter's row of the index table (with a mesh, assembled by one
+        all_reduce), the TBPTT loss of this rank's share of them, scaled by
+        that share, and its gradient, one all_reduce summing gradients and
+        loss over the ranks, clip and Adam; adds the loss to the sums and
+        advances the counter."""
+        mesh, bs = self.mesh, self.batch_size
+        share = par_mesh.batch_share(mesh, bs)
+        paths, = par_mesh.take_rows(mesh, (st.train,),
+                                    st.path_idx.index_select(0, st.counter)[0])
+        with torch.enable_grad():
+            loss = self.tbptt_loss(st.layers, st.out, st.norm,
+                                   *self._split(paths[share])) * (
+                                       (share.stop - share.start) / bs)
+            grads = torch.autograd.grad(loss, st.leaves)
+        *grads, loss = par_mesh.all_reduce_flat(
+            mesh, list(grads) + [loss.detach()])
+        self.optimizer.step_(st.leaves, grads, st.count, st.mu, st.nu)
+        st.sums[0].add_(loss)
+        st.counter.add_(1)
+
+    def _valid_step(self, st):
+        """The masked loss over the padded test paths (with a mesh, its
+        terms summed over the ranks by one all_reduce) into the sums."""
+        num, den = par_mesh.all_reduce_flat(self.mesh, list(
+            self.valid_terms(st.layers, st.out, st.norm, st.test)))
+        st.sums[1].add_(num / torch.clamp(den, min=1.0))
+
+    def _epoch(self, st, n_tr, n_batches, generator, path_idx, train_step,
+               valid_step):
+        """n_batches train steps, each on batch_size paths drawn with
+        replacement from the first n_tr (or path_idx[i]) into the index
+        table; then the validation step. Returns (mean train loss, valid
+        loss), 0-d device tensors."""
+        if path_idx is None:
+            path_idx = torch.randint(0, n_tr, (n_batches, self.batch_size),
+                                     generator=generator,
+                                     device=st.train.device)
+        else:
+            path_idx = torch.stack(list(path_idx)).to(st.path_idx.device)
+        captured.set_table(st.path_idx, path_idx)
+        captured.run_epoch(st, n_batches, 1, train_step, valid_step)
+        return st.sums[0] / n_batches, st.sums[1].clone()
+
     @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_tr, n_batches,
                  generator, path_idx=None):
-        """One epoch: n_batches train steps, each on batch_size paths drawn
-        with replacement from the first n_tr of `train` (or path_idx[i]),
-        a TBPTT loss and gradient, clip and Adam; then the validation loss.
-        train: staged paths (cap, T, d); test: (paths, weights) as `stage`
-        gives them (with a mesh, this rank's slice; the indices are
-        global). Returns (params, opt_state, mean train loss, valid loss),
-        the losses 0-d device tensors; nothing here waits for the device.
-        Each step is labelled 'fit.train_step' for torch.profiler."""
-        mesh = self.mesh
-        bs = self.batch_size
-        share = par_mesh.batch_share(mesh, bs)
-        losses = []
-        for i in range(n_batches):
-            with record_function('fit.train_step'):
-                idx = (path_idx[i] if path_idx is not None else
-                       torch.randint(0, n_tr, (bs,), generator=generator,
-                                     device=train.device))
-                paths, = par_mesh.take_rows(mesh, (train,), idx)
-                leaves = [p.detach().requires_grad_(True)
-                          for p in tree_leaves(params)]
-                with torch.enable_grad():
-                    loss = self.tbptt_loss(
-                        tree_unflatten(params, leaves), norm,
-                        *self._split(paths[share])) * (
-                            (share.stop - share.start) / bs)
-                    grads = torch.autograd.grad(loss, leaves)
-                *grads, loss = par_mesh.all_reduce_flat(
-                    mesh, list(grads) + [loss.detach()])
-                params, opt_state = self.optimizer.update(
-                    tree_unflatten(params, grads), opt_state, params)
-                losses.append(loss)
-        num, den = par_mesh.all_reduce_flat(
-            mesh, list(self.valid_terms(params, norm, test)))
-        valid = num / torch.clamp(den, min=1.0)
-        return params, opt_state, torch.stack(losses).mean(), valid
+        """One epoch, run eagerly: n_batches train steps, each on
+        batch_size paths drawn with replacement from the first n_tr of
+        `train` (or path_idx[i]), a TBPTT loss and gradient, clip and Adam;
+        then the validation loss. train: staged paths (cap, T, d); test:
+        (paths, weights) as `stage` gives them (with a mesh, this rank's
+        slice; the indices are global). Returns (params, opt_state, mean
+        train loss, valid loss), the losses 0-d device tensors; nothing
+        here waits for the device. The steps are the compiled epoch's
+        (`_train_step`, `_valid_step`) on a state made for this epoch,
+        labelled 'fit.train_step' and 'fit.valid_step' for
+        torch.profiler."""
+        st = self._fit_state(params, opt_state, norm, train, test,
+                             n_batches)
+        losses = self._epoch(st, n_tr, n_batches, generator, path_idx,
+                             lambda: self._train_step(st),
+                             lambda: self._valid_step(st))
+        return (*self._state_out(st, clone=False), *losses)
 
     @property
     def recurrent(self):

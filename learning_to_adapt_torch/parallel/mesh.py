@@ -31,16 +31,19 @@ on its own device and the code calls the collectives itself:
   spawn                runs a function on W local ranks (processes started
                        by spawn), the way torchrun would start them
 
-sharded_rollout_fn and jit_epoch_sharded have no counterpart: nothing here
-is jitted. They are the `mesh=` path of samplers/rollout.py and the
-`model.mesh` path of the three models' epoch_fn, which call shard_rows,
+sharded_rollout_fn and jit_epoch_sharded have no counterpart here. They
+are the `mesh=` path of samplers/rollout.py and the `model.mesh` path of
+the three models' train and validation steps, which call shard_rows,
 take_rows, batch_share and all_reduce below. Those helpers take mesh None
 for a run without one (the whole axis, plain indexing, no collective), so
-each fit has one code path.
+each fit has one code path. Over nccl a fit captures its steps with their
+collectives as CUDA graphs (models/captured.py, the port's jit); over gloo
+it runs them eagerly.
 
 Each collective wrapper counts its calls (all_reduce.calls,
 all_gather.calls, broadcast.calls), as the kernel wrappers count their
-launches: collective_counts() reads them.
+launches: collective_counts() reads them. A captured step's collectives
+count once a replay (count_collectives), not at its capture or warm-ups.
 
 The backend is nccl on CUDA devices and gloo on the CPU unless the caller
 names one; gloo also runs on CUDA tensors (all_gather through the host),
@@ -198,6 +201,13 @@ all_reduce.calls = all_gather.calls = broadcast.calls = 0
 def collective_counts():
     return dict(all_reduce=all_reduce.calls, all_gather=all_gather.calls,
                 broadcast=broadcast.calls)
+
+
+def count_collectives(counts):
+    """Adds counts (as collective_counts() gives them) to the counters: a
+    captured step's collectives at each replay (models/captured.py)."""
+    for fn in (all_reduce, all_gather, broadcast):
+        fn.calls += counts[fn.__name__]
 
 
 def all_reduce_flat(mesh, tensors, axis='env'):
