@@ -24,15 +24,25 @@ Phases, each of which raises (exit code != 0) on failure:
      on the last 16 transitions at inner lr 1e-3 — through Sampler: one
      random-action call, Normalizer.fit on its paths, one policy call
      (episode 1, so cripple tasks are drawn); paths of 100 steps, so
-     adaptation is active from step 18. The launch counters are set to 0
-     before the policy call and must show 10 fused-MLP launches and 1
-     weight pack per env step and 1 Jacobi launch per physics step;
-  4. profile one more policy sampling call of 30 steps with torch.profiler:
-     wall and device time per step, the device's busy share, host time of
-     each labelled part of a step (rollout.adapt / .pack / .plan /
-     .env_step), the device time per launch of both kernels and the pack's
-     device time per step;
-  5. watch one more policy sampling call for the host waiting on the card
+     adaptation is active from step 18. Every sampling call on the card
+     replays its step captured as CUDA graphs (samplers/rollout.py
+     CompiledRollout, one graph for each side of the adaptation gate,
+     captured in its first call): the policy call must replay one a step.
+     The launch counters, which count a captured launch once a replay, are
+     set to 0 before the policy call and must show 10 fused-MLP launches
+     and 1 weight pack per env step and 1 Jacobi launch per physics step;
+  4. four more policy calls of 100 steps from one generator state, eager
+     and captured in turns (e c c e; env-steps/s of both), each with the
+     counts set to 0 just before it: the paths, the generator's state
+     after the call and the launches must be the first call's, bit for
+     bit; then one eager and one captured call of 30 steps, each timed and
+     profiled with torch.profiler: wall and device time per step, device
+     activities and replays per step, the device's busy share, the device
+     time per launch of both kernels, the busiest activities, and for the
+     eager call the host and device time of each labelled part of a step
+     (rollout.adapt / .pack / .plan / .env_step);
+  5. watch one more captured policy sampling call (after a warm-up, so its
+     capture's synchronize is not in it) for the host waiting on the card
      (the profiler's CUDA runtime sync calls and CUDA's sync-debug mode) and
      fail if anything waits once a step or more;
   6. the trainer: run_grbal.run_experiment in a temporary directory at
@@ -60,9 +70,10 @@ Phases, each of which raises (exit code != 0) on failure:
      to 3, checked as in phase 6 against results/mb_mpc_halfcheetah_tpu_r3.csv;
      per policy iteration 20 fused-MLP launches a step over 20,000 rows
      (2000), one weight pack for the whole call, 1 Jacobi launch per
-     physics step, none from the fit; then three policy sampling calls:
-     one of 100 steps timed, and two of 30 steps, profiled (device time
-     per step, busy share) and watched for host waits as in phase 5. The
+     physics step, none from the fit; then policy sampling calls as in
+     phases 4 and 5: eager against captured at 100 steps (e c c e), one
+     eager and one captured call of 30 steps profiled, one captured call
+     watched for host waits. The
      kernel phase also holds and times the MLP kernel at this shape (1 x
      20,000 rows, 26->512->512->20, beside a bf16 addmm chain);
   9. ReBAL: run_rebal.run_experiment (5 envs, 500 candidates x horizon 10,
@@ -70,8 +81,8 @@ Phases, each of which raises (exit code != 0) on failure:
      paths cut 1000 -> 100, --task cripple, 3 iterations and a resume,
      checked against results/rebal_halfcheetah_tpu_r3.csv; per policy
      iteration no fused-MLP launch or pack (the recurrent planner runs f32
-     cell equations), 1 Jacobi launch per physics step; three policy
-     sampling calls as in phase 8;
+     cell equations), 1 Jacobi launch per physics step; policy sampling
+     calls as in phase 8;
  10. time the MB-MPC fit's epoch on 15,300 train rows (its dataset at
      iteration 16: 128 steps an epoch) and 11. the ReBAL fit's on 68 train
      paths x 1000 steps (8 steps of 10 TBPTT chunks an epoch), each as in
@@ -101,9 +112,9 @@ Phases, each of which raises (exit code != 0) on failure:
      blocks env, the tiers for the others), none from the fits; finite
      losses and returns, progress.csv's header letter for letter that of
      results/grbal_cheetah_hfield_tpu_r3.csv, grbal_blocks_tpu_r5.csv and
-     grbal_arm7dof_force_tpu_r4.csv, params.pkl re-creating its env; then
-     policy sampling calls on the blocks env as in phase 8 (one of 100
-     steps timed, one of 30 profiled, one of 30 watched for host waits);
+     grbal_arm7dof_force_tpu_r4.csv, params.pkl re-creating its env, every
+     sampling call captured; then policy sampling calls on the blocks env
+     as in phase 8;
  14. the Ant (free joint, RK4: 4 constraint solves a physics step): in
      the kernel phase, the tier Jacobi kernel on Ant contact systems (5
      envs x 116 rows, after 30 random-action steps) and the MLP kernel at
@@ -124,11 +135,15 @@ Phases, each of which raises (exit code != 0) on failure:
      9 and 14 wrote (copied from their temporary directories): (a)
      meta_test.main on the Ant GrBAL snapshot (trained on legs 0, 1, 2)
      with --eval_set 3 --seeds 0 --num_rollouts 5 --max_path_length 100,
-     from a temporary working directory: the JSON has the keys of
+     from a temporary working directory, once with eager sampling and
+     once captured (each rollout a new Sampler that captures its own
+     graphs; both walls printed, the results, launches and adapted steps
+     identical): the JSON has the keys of
      results/meta_test_ant_leg3_grbal_s0.json plus ablate_warmup and
      set_kind, both modes are finite, the counts (set to 0 just before the
      run) show per mode 1000 fused-MLP launches, 100 packs and 400 Jacobi
-     launches, and rollout.adapt runs in the adapted mode only (82 steps);
+     launches, and adaptation runs in the adapted mode only (82 steps:
+     rollout.adapt calls eager, replays of the adapted graph captured);
      the gap is printed; (b) meta_test.main on the ReBAL snapshot (modes
      rebal, rebal_hidden_zero, rebal_hidden_frozen: no MLP launch, 100
      Jacobi launches each, three different returns) and on the MB-MPC
@@ -143,28 +158,30 @@ Phases, each of which raises (exit code != 0) on failure:
      its episode counter reads 2; (e) entry()'s fn(*example_args) once:
      exactly 1 fused-MLP launch, held against the plain version;
  17. the multi-rank path (parallel/mesh.py): (a) run_grbal_multihost at
-     world size 1 over nccl on the card, at the width of phase 6 with
-     --task cripple, 2 iterations of 100-step paths: per policy iteration
-     1000 fused-MLP launches, 100 packs and 100 Jacobi launches, one
-     all_gather a sampling call and no collective in its steps, per fit
-     one broadcast and one all_reduce a meta-train step, a validation step
-     and an epoch; then one sharded fit epoch (64 + 16 steps on timing
-     data) watched for host waits as in phase 7; (b) two ranks sharing the
-     card over gloo (processes started by spawn) against one rank, GrBAL
-     at full width with 6 envs x 40 steps over the ranks: the random call's
-     paths to 1e-5, a 3-epoch sharded meta fit on the gathered paths bit
-     for bit (both ranks alike, as rank 0's unsharded twin on the same
-     paths, and as the 1-rank job's where the two jobs gathered the same
-     paths bit for bit), the policy call's candidate returns and paths
-     step for step up to the first step where the paths part, which passes
-     only as a near tie (after step 0, in one env, the best two returns
-     within twice the two jobs' return difference), and its reward sum to
-     rtol 2e-3 where nothing parts; 10 fused-MLP launches a policy step on
-     every rank; the phase's seconds and each job's policy env-steps/s are
-     printed.
+     world size 1 over nccl on the card, at the width of phase 6 with --task
+     cripple, 2 iterations of 100-step paths: per policy iteration 1000
+     fused-MLP launches, 100 packs and 100 Jacobi launches, every sampling
+     call captured, one all_gather a sampling call and no collective in its
+     steps, per fit one broadcast and one all_reduce a meta-train step, a
+     validation step and an epoch; then one sharded fit epoch (64 + 16 steps
+     on timing data) watched for host waits as in phase 7; (b) two ranks
+     sharing the card over gloo (processes started by spawn; sampling eager)
+     against one rank, GrBAL at full width with 6 envs x 40 steps over the
+     ranks: the random call's paths to 1e-5, a 3-epoch sharded meta fit on
+     the gathered paths bit for bit (both ranks alike, as rank 0's unsharded
+     twin on the same paths, and as the 1-rank job's where the two jobs
+     gathered the same paths bit for bit), the policy call's candidate
+     returns and paths step for step up to the first step where the paths
+     part, which passes only as a near tie (after step 0, in one env, the
+     best two returns within twice the two jobs' return difference), and its
+     reward sum to rtol 2e-3 where nothing parts; 10 fused-MLP launches a
+     policy step on every rank; the phase's seconds and each job's policy
+     env-steps/s are printed.
 
 Profiler windows are read from their raw kineto events (Trace): building
-the profiler's FunctionEvents takes tens of seconds a window.
+the profiler's FunctionEvents takes tens of seconds a window. A sampling
+call's window that recorded fewer launches of our kernels than the
+counters saw is run again (complete_trace).
 
 Imports nothing of JAX or of the JAX package. Without a card it exits 2
 before printing any result.
@@ -874,6 +891,7 @@ def main_path(dev, card):
         MetaMLPDynamicsModel, Normalizer)
     from learning_to_adapt_torch.policies import MPCController
     from learning_to_adapt_torch.samplers import Sampler
+    from learning_to_adapt_torch.samplers.rollout import CompiledRollout
 
     env = normalize(HalfCheetahEnv(task='cripple', reset_every_episode=True,
                                    device=dev))
@@ -925,50 +943,18 @@ def main_path(dev, card):
         raise AssertionError(f'launch counts {launches} != {want}')
     if packs != PATH_LEN:
         raise AssertionError(f'{packs} weight packs != one per env step')
+    fn = sampler._rollout_fn(False)
+    if not isinstance(fn, CompiledRollout) or fn.replays != PATH_LEN:
+        raise AssertionError('the policy sampling call did not replay one '
+                             'captured graph a step')
     returns = paths['rewards'].sum(axis=1)
-    log(f'policy sampling (episode 1, cripple tasks drawn): '
+    log(f'policy sampling (episode 1, cripple tasks drawn, captured): '
         f'{N_ENVS}x{PATH_LEN} env steps in {seconds:.2f} s = '
-        f'{N_ENVS * PATH_LEN / seconds:.1f} env-steps/s on {card}; '
-        f'returns {np.round(returns, 2).tolist()}')
+        f'{N_ENVS * PATH_LEN / seconds:.1f} env-steps/s on {card}, the '
+        f'capture of {len(fn.graphs)} graphs included ({fn.capture_s:.3f} '
+        f's); {fn.replays} replays; returns '
+        f'{np.round(returns, 2).tolist()}')
     return launches, sampler
-
-
-def profile_policy_steps(dev, sampler):
-    """torch.profiler over one policy sampling call of PROFILE_LEN steps
-    (adaptation on from step 18): host time of each labelled part of a step,
-    device kernel time and kernel launches per step, the busiest kernels."""
-    from learning_to_adapt_torch.samplers import Sampler
-    prof_sampler = Sampler(sampler.env, sampler.policy, N_ENVS, PROFILE_LEN,
-                           adapt_batch_size=ADAPT_BATCH, seed=1, device=dev)
-    prof_sampler.obtain_samples()                  # warm-up
-    prof_sampler.obtain_samples()
-    plain_s = prof_sampler.last_seconds
-    trace = profiled(prof_sampler.obtain_samples)
-    prof_s = prof_sampler.last_seconds
-    device_us = trace.device_us()
-    by_name = {}  # keyed by the printed (shortened) kernel name
-    for name, ns, _ in trace.device:
-        by_name[name[:70]] = by_name.get(name[:70], 0) + ns / 1e3
-    parts = {k: dict(calls=c, host_ms_per_call=round(us / c / 1e3, 3))
-             for k, (c, us) in trace.parts('rollout.').items()}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f'profile, {N_ENVS}x{PROFILE_LEN} policy steps: wall '
-        f'{plain_s * 1e3 / PROFILE_LEN:.2f} ms/step unprofiled, '
-        f'{prof_s * 1e3 / PROFILE_LEN:.2f} ms/step profiled; device time '
-        f'{device_us / 1e3 / PROFILE_LEN:.3f} ms/step, busy share '
-        f'{device_us / 1e6 / prof_s:.3f} of the profiled wall, '
-        f'{device_us / 1e6 / plain_s:.3f} of the unprofiled wall; '
-        f'{len(trace.device) / PROFILE_LEN:.0f} device activities/step')
-    log('profile parts (host, profiled) ' + json.dumps(parts))
-    pack_us = trace.device_us_under('rollout.pack')
-    log(f'profile rollout.pack: {parts["rollout.pack"]["calls"]} packs, '
-        f'device time {pack_us / 1e3 / PROFILE_LEN:.4f} ms per step')
-    for kernel in KERNEL_NAMES:
-        n = trace.launches(kernel)
-        log(f'profile {kernel}: {n} launches, device time '
-            f'{trace.device_us(kernel) / max(n, 1) / 1e3:.4f} ms per launch')
-    log('profile top device activities (ms/step): ' + json.dumps(
-        {k: round(us / 1e3 / PROFILE_LEN, 4) for k, us in top}))
 
 
 def watch_host_syncs(fn, n_steps, what, most=None):
@@ -1016,32 +1002,27 @@ def watch_host_syncs(fn, n_steps, what, most=None):
     return waits
 
 
-def check_host_syncs(dev, sampler):
-    """One policy sampling call of PROFILE_LEN steps watched for host
-    waits: only once-per-call work (the reset, the final copy to the host)
-    may wait."""
-    from learning_to_adapt_torch.samplers import Sampler
-    sync_sampler = Sampler(sampler.env, sampler.policy, N_ENVS, PROFILE_LEN,
-                           adapt_batch_size=ADAPT_BATCH, seed=2, device=dev)
-    sync_sampler.obtain_samples()                  # warm-up, not counted
-    watch_host_syncs(sync_sampler.obtain_samples, PROFILE_LEN,
-                     f'one {PROFILE_LEN}-step policy sampling call')
-
-
 def counters():
-    from learning_to_adapt_torch.ops import fused_mlp, jacobi
-    return dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
-                pack=fused_mlp.pack_weights.calls,
-                jacobi_solve=jacobi.jacobi_solve.launches,
-                jacobi_solve_cluster=jacobi.jacobi_solve_cluster.launches)
+    """The kernel counters (a captured launch counts once a replay)."""
+    from learning_to_adapt_torch.models import captured
+    return captured.kernel_counts()
+
+
+def check_captured(sampler, what):
+    """Fails unless each of the sampler's calls so far (random and policy)
+    replayed one captured graph a step."""
+    from learning_to_adapt_torch.samplers.rollout import CompiledRollout
+    for random, fn in sampler._fns.items():
+        if not isinstance(fn, CompiledRollout) or not fn.replays or \
+                fn.replays % sampler.max_path_length:
+            kind = 'random' if random else 'policy'
+            raise AssertionError(f'{what}: the {kind} sampling calls did '
+                                 'not replay one captured graph a step')
 
 
 def zero_counters():
-    from learning_to_adapt_torch.ops import fused_mlp, jacobi
-    fused_mlp.fused_mlp_forward.launches = 0
-    fused_mlp.pack_weights.calls = 0
-    jacobi.jacobi_solve.launches = 0
-    jacobi.jacobi_solve_cluster.launches = 0
+    from learning_to_adapt_torch.models import captured
+    captured.count_kernels({k: -n for k, n in counters().items()})
 
 
 #: the kernels' names in a profiler trace
@@ -1189,6 +1170,8 @@ def trainer_phase(dev, card, entry, cfg, header_csv, loss_keys, policy_itr,
                              f'wrote itrs {[r["Itr"] for r in resumed_rows]}')
 
     per_itr = policy_itr(solves_per_env_step(trainer.env.wrapped_env))
+    check_captured(trainer.sampler, entry.module)
+    check_captured(resumed.sampler, f'{entry.module} (resumed)')
     check_trainer_launches(per_itr, record, total, resume_record,
                            resume_total, n_itr)
     log(f'trainer ({entry.module}.run_experiment, --task cripple, seed 0, '
@@ -1257,42 +1240,170 @@ def rebal_trainer_phase(dev, card, keep):
     return per_itr, total, trainer
 
 
-def sampling_profile(sampler, what, card):
-    """More policy sampling calls of a trained run's model: one of the
-    run's own length, timed (env-steps/s), and, after a warm-up, two of
-    PROFILE_LEN steps (more than the 17 waits a call makes once, in its
-    reset and its copy to the host; the profiler's record of a longer call
-    takes minutes to read): one under torch.profiler (device time and
-    activities per step, busy share, device time per launch of both
-    kernels), one watched for host waits as in phase 5."""
-    from learning_to_adapt_torch.samplers import Sampler
+@contextlib.contextmanager
+def eager_sampling(sampler):
+    """The sampler's policy calls run the eager rollout (fn.eager) while
+    the context lasts: the same Sampler.obtain_samples, so both modes are
+    timed alike."""
+    fn = sampler._rollout_fn(False)
+    sampler._fns[False] = fn.eager
+    try:
+        yield
+    finally:
+        sampler._fns[False] = fn
+
+
+def eager_against_captured(sampler, what, card):
+    """Four policy sampling calls of the sampler's own length from one
+    generator state and episode, eager and captured in turns (e c c e),
+    each with the counts set to 0 just before it. Fails unless every call
+    gives the first one's paths bit for bit, leaves the generator in the
+    same state and makes the same launches, and unless a captured call
+    replays one graph a step. Returns (captured launches of a call, env-
+    steps/s of the eager and of the steady captured calls)."""
+    import numpy as np
+    import torch
+    from learning_to_adapt_torch.samplers.rollout import CompiledRollout
+    fn = sampler._rollout_fn(False)
+    if not isinstance(fn, CompiledRollout):
+        raise AssertionError(f'{what}: the sampling call is not captured')
     m, t_len = sampler.num_rollouts, sampler.max_path_length
-    sampler.obtain_samples()
-    wall = sampler.last_seconds
-    n = PROFILE_LEN
+    state, episode = sampler._generator.get_state(), sampler._episode_idx
+    runs = []
+    for mode in 'ecce':
+        sampler._generator.set_state(state)
+        sampler._episode_idx = episode
+        replays = fn.replays
+        zero_counters()
+        if mode == 'e':
+            with eager_sampling(sampler):
+                paths = sampler.obtain_samples()
+        else:
+            paths = sampler.obtain_samples()
+        runs.append(dict(mode=mode, s=sampler.last_seconds,
+                         launches=counters(), replays=fn.replays - replays,
+                         paths=paths, rng=sampler._generator.get_state()))
+    ref = runs[0]
+    for r in runs[1:]:
+        bad = [k for k in ref['paths'] if not np.array_equal(
+            r['paths'][k], ref['paths'][k])]
+        if bad:
+            raise AssertionError(f'{what}: a {r["mode"]} call\'s {bad} '
+                                 'differ from the eager call\'s')
+        if not torch.equal(r['rng'], ref['rng']):
+            raise AssertionError(f'{what}: the generator state after a '
+                                 f'{r["mode"]} call differs')
+        if r['launches'] != ref['launches']:
+            raise AssertionError(f'{what}: launches {r["launches"]} in a '
+                                 f'{r["mode"]} call != {ref["launches"]}')
+        want = t_len if r['mode'] == 'c' else 0
+        if r['replays'] != want:
+            raise AssertionError(f'{what}: {r["replays"]} replays in a '
+                                 f'{r["mode"]} call of {t_len} steps')
+    rates = {mode: [round(m * t_len / r['s'], 1) for r in runs
+                    if r['mode'] == mode] for mode in 'ec'}
+    log(f'{what} policy sampling, eager against captured (e c c e) from one '
+        f'generator state, {m}x{t_len} steps on {card}: env-steps/s eager '
+        f'{rates["e"]}, captured {rates["c"]} (ms/step '
+        f'{[round(r["s"] * 1e3 / t_len, 3) for r in runs]}); paths and '
+        'generator state identical, launches '
+        f'{json.dumps(ref["launches"])} in each; {len(fn.graphs)} graphs '
+        f'{[list(k) for k in fn.graphs]}, 1 replay a step, capture '
+        f'{fn.capture_s:.3f} s')
+    return ref['launches'], rates
+
+
+def complete_trace(fn, what, tries=3):
+    """The Trace of fn() (profiled) from a window that recorded every
+    launch of our kernels that the counters saw in it; a window that lost
+    some, which the profiler has given once in an eager sampling call, is
+    run again, up to `tries` times, then the phase fails."""
+    names = dict(fused_mlp='fused_mlp_kernel', jacobi_solve='jacobi_kernel',
+                 jacobi_solve_cluster='jacobi_cluster_kernel')
+    for attempt in range(1, tries + 1):
+        before = counters()
+        trace = profiled(fn)
+        launched = diff(counters(), before)
+        seen = {k: trace.launches(kernel) for k, kernel in names.items()}
+        if all(seen[k] == launched[k] for k in names):
+            return trace
+        log(f'{what}: profiler window {attempt} of {tries} recorded '
+            f'{json.dumps(seen)} of the launches {json.dumps(launched)}')
+    raise AssertionError(f'{what}: {tries} profiler windows lost kernel '
+                         'launches')
+
+
+def sampling_profile(sampler, what, card):
+    """A trained run's policy sampling: eager against captured at the run's
+    own length (eager_against_captured), then, after a warm-up (which
+    captures), calls of PROFILE_LEN steps (more than the 17 waits a call
+    makes once, in its reset and its copy to the host): one eager and one
+    captured call each timed, then under torch.profiler (device time and
+    activities a step, busy share, device time a launch of both kernels,
+    the busiest activities; the eager call's host time and device time of
+    each labelled part of a step; each window holding every launch the
+    counters saw), and one captured call watched for host waits,
+    which fails on any wait once a step or more. Returns the captured
+    launches of a run-length call."""
+    from learning_to_adapt_torch.samplers import Sampler
+    launches, rates = eager_against_captured(sampler, what, card)
+    m, n = sampler.num_rollouts, PROFILE_LEN
     short = Sampler(sampler.env, sampler.policy, m, n,
                     adapt_batch_size=sampler.adapt_batch_size, seed=1,
                     device=sampler.device)
-    short.obtain_samples()                          # warm-up
-    trace = profiled(short.obtain_samples)
-    prof_s = short.last_seconds
-    per_kernel = {}
-    for kernel in KERNEL_NAMES:
-        launches = trace.launches(kernel)
-        per_kernel[kernel] = dict(
-            launches=launches, device_ms_per_launch=round(
-                trace.device_us(kernel) / max(launches, 1) / 1e3, 4))
-    device_ms_step = trace.device_us() / 1e3 / n
-    log(f'{what} policy sampling, {m}x{t_len} steps on {card}: '
-        f'{m * t_len / wall:.1f} env-steps/s ({wall * 1e3 / t_len:.2f} '
-        f'ms/step); profile of {m}x{n} steps: '
-        f'{prof_s * 1e3 / n:.2f} ms/step profiled, device time '
-        f'{device_ms_step:.3f} ms/step, busy share '
-        f'{device_ms_step * t_len / 1e3 / wall:.3f} of the unprofiled wall; '
-        f'{len(trace.device) / n:.0f} device activities/step; '
-        'kernels ' + json.dumps(per_kernel))
+    short.obtain_samples()                          # warm-up: captures
+    fn = short._rollout_fn(False)
+    res = {}
+    for mode in ('eager', 'captured'):
+        with (eager_sampling(short) if mode == 'eager'
+              else contextlib.nullcontext()):
+            short.obtain_samples()
+            wall = short.last_seconds
+            replays = fn.replays
+            trace = complete_trace(short.obtain_samples, what)
+            replays = fn.replays - replays
+        per_kernel = {}
+        for kernel in KERNEL_NAMES:
+            n_launch = trace.launches(kernel)
+            per_kernel[kernel] = dict(
+                launches=n_launch, device_ms_per_launch=round(
+                    trace.device_us(kernel) / max(n_launch, 1) / 1e3, 4))
+        device_ms = trace.device_us() / 1e3 / n
+        parts = {k: dict(calls=c, host_ms_per_call=round(us / c / 1e3, 3))
+                 for k, (c, us) in trace.parts('rollout.').items()}
+        res[mode] = dict(
+            ms_step=round(wall * 1e3 / n, 3),
+            profiled_ms_step=round(short.last_seconds * 1e3 / n, 3),
+            device_ms_step=round(device_ms, 4),
+            activities_step=round(len(trace.device) / n),
+            busy=round(device_ms * n / 1e3 / wall, 3),
+            replays_step=replays / n, kernels=per_kernel)
+        log(f'{what} profile, {m}x{n} policy steps, {mode}, on {card}: '
+            f'wall {res[mode]["ms_step"]} ms/step unprofiled, '
+            f'{res[mode]["profiled_ms_step"]} profiled; device time '
+            f'{res[mode]["device_ms_step"]} ms/step, busy share '
+            f'{res[mode]["busy"]} of the unprofiled wall; '
+            f'{res[mode]["activities_step"]} device activities/step; '
+            f'{res[mode]["replays_step"]} replays/step; kernels '
+            f'{json.dumps(per_kernel)}; parts (host, profiled) '
+            f'{json.dumps(parts)}')
+        by_name = {}  # keyed by the printed (shortened) activity name
+        for name, ns, _ in trace.device:
+            by_name[name[:70]] = by_name.get(name[:70], 0) + ns / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f'{what} profile top device activities, {mode} (ms/step): '
+            + json.dumps({k: round(us / 1e3 / n, 4) for k, us in top}))
+        if mode == 'eager':
+            # device time launched under each label (rollout.plan holds
+            # rollout.adapt and rollout.pack)
+            log(f'{what} profile device ms/step by part (eager): '
+                + json.dumps({k: round(trace.device_us_under(k) / 1e3 / n,
+                                       4) for k in sorted(parts)}))
+    log(f'{what} sampling summary on {card}: ' + json.dumps(dict(
+        env_steps_s=rates, capture_s=round(fn.capture_s, 3), **res)))
     watch_host_syncs(short.obtain_samples, n,
-                     f'one {n}-step {what} policy sampling call')
+                     f'one {n}-step {what} policy sampling call (captured)')
+    return launches
 
 
 def solves_per_env_step(env):
@@ -1356,6 +1467,7 @@ def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key,
         raise AssertionError(f'{cls_name}: params.pkl did not re-create its '
                              'env')
     physics = solves_per_env_step(trainer.env.wrapped_env) * PATH_LEN
+    check_captured(trainer.sampler, f'{module} --env {cls_name}')
     policy = dict(NO_LAUNCH, fused_mlp=mlp, pack=packs,
                   **{jacobi_key: physics})
     want = {'random': dict(policy, fused_mlp=0, pack=0), 'policy': policy,
@@ -1739,15 +1851,29 @@ EXECUTOR_ENVS, EXECUTOR_T, EXECUTOR_STEPS = 5, 50, 120
 @contextlib.contextmanager
 def per_rollout(record):
     """Appends, for every sim_policy.rollout call made through meta_test,
-    (launches made inside it, rollout.adapt calls inside it) to record."""
+    (launches made inside it, its steps with adaptation on) to record: an
+    eager rollout's rollout.adapt calls, a captured one's replays of its
+    adapted graph (the adapt calls of its warm-ups and capture are not
+    steps)."""
     from learning_to_adapt_torch import meta_test
     from learning_to_adapt_torch.models import MetaMLPDynamicsModel
+    from learning_to_adapt_torch.samplers.rollout import CompiledRollout
     rollout, adapt_fn = meta_test.rollout, MetaMLPDynamicsModel.adapt_fn
+    compiled_call = CompiledRollout.__call__
     adapts = [0]
 
     def counted_adapt(self, *args):
         adapts[0] += 1
         return adapt_fn(self, *args)
+
+    def adapted_replays(fn):
+        return sum(g.replays for k, g in fn.graphs.items() if k[0])
+
+    def counted_call(self, *args):
+        a0, r0 = adapts[0], adapted_replays(self)
+        out = compiled_call(self, *args)
+        adapts[0] = a0 + adapted_replays(self) - r0
+        return out
 
     def counted(*args, **kwargs):
         before, a0 = counters(), adapts[0]
@@ -1758,11 +1884,26 @@ def per_rollout(record):
         return out
     meta_test.rollout = counted
     MetaMLPDynamicsModel.adapt_fn = counted_adapt
+    CompiledRollout.__call__ = counted_call
     try:
         yield record
     finally:
         meta_test.rollout = rollout
         MetaMLPDynamicsModel.adapt_fn = adapt_fn
+        CompiledRollout.__call__ = compiled_call
+
+
+@contextlib.contextmanager
+def eager_rollouts():
+    """Every sampling call made while the context lasts runs eagerly (the
+    device rule of models/captured.py patched to refuse the capture)."""
+    from learning_to_adapt_torch.models import captured
+    rule = captured.captures
+    captured.captures = lambda device, mesh: False
+    try:
+        yield
+    finally:
+        captured.captures = rule
 
 
 def run_meta_test(exp_dir, flags, dev):
@@ -1794,7 +1935,7 @@ def run_meta_test(exp_dir, flags, dev):
 
 def check_modes(what, results, record, modes, want, adapts):
     """Every mode finite with N_ENVS returns and one rollout each, made
-    with launches `want` and adapts[i] rollout.adapt calls."""
+    with launches `want` and adapts[i] adapted steps."""
     import math
     for mode, (counts, n_adapt), n_want in zip(modes, record, adapts):
         r = results[mode]
@@ -1802,15 +1943,15 @@ def check_modes(what, results, record, modes, want, adapts):
             raise AssertionError(f'{what} {mode}: {r}')
         if counts != want or n_adapt != n_want:
             raise AssertionError(f'{what} {mode}: launches {counts} != '
-                                 f'{want}, or {n_adapt} rollout.adapt '
-                                 f'calls != {n_want}')
+                                 f'{want}, or {n_adapt} adapted steps != '
+                                 f'{n_want}')
     if len(record) != len(modes):
         raise AssertionError(f'{what}: {len(record)} rollouts for modes '
                              f'{modes}')
     log(f'{what}: ' + ', '.join(
         f'{m} {results[m]["mean"]:.2f} +- {results[m]["sem"]:.2f}'
         for m in modes) + f'; launches per mode {json.dumps(want)}; '
-        f'rollout.adapt calls per mode {adapts}')
+        f'adapted steps per mode {adapts}')
 
 
 def meta_test_phase(dev, card, snap):
@@ -1825,10 +1966,25 @@ def meta_test_phase(dev, card, snap):
     from learning_to_adapt_torch.samplers.vectorized_env_executor import (
         IterativeEnvExecutor)
 
-    # (a) GrBAL trained on the Ant's legs (0, 1, 2), on the held-out leg 3
+    # (a) GrBAL trained on the Ant's legs (0, 1, 2), on the held-out leg 3:
+    # first with eager sampling, then captured (each rollout a new Sampler,
+    # which captures its own graphs)
+    t0 = time.time()
+    with eager_rollouts():
+        eager = run_meta_test(snap['grbal_ant'], ['--eval_set', '3'], dev)
+    eager_s = time.time() - t0
     t0 = time.time()
     results, record, grbal_total = run_meta_test(
         snap['grbal_ant'], ['--eval_set', '3'], dev)
+    captured_s = time.time() - t0
+    if (results, record, grbal_total) != eager:
+        raise AssertionError('the GrBAL meta-test with captured sampling '
+                             'differs from the eager one: '
+                             f'{(record, grbal_total)} != {eager[1:]}')
+    log(f'GrBAL Ant meta-test (2 modes x 1 seed x {N_ENVS} x {PATH_LEN} '
+        f'steps) on {card}: eager sampling {eager_s:.1f} s, captured '
+        f'{captured_s:.1f} s; results, launches and adapted steps '
+        'identical')
     with open(META_TEST_JSON) as f:
         jax_doc = json.load(f)
     keys = list(jax_doc)
@@ -1852,7 +2008,7 @@ def meta_test_phase(dev, card, snap):
     log(f'GrBAL held-out gap (adapted - pre-update, {N_ENVS} rollouts x '
         f'{PATH_LEN} steps, seed 0, 2-iteration snapshot): '
         f'{results["gap"]["mean"]:+.2f} +- {results["gap"]["sem"]:.2f} '
-        f'in {time.time() - t0:.1f} s on {card}')
+        f'on {card}')
 
     # (b) ReBAL and MB-MPC on their own task distribution
     t0 = time.time()
@@ -2092,6 +2248,8 @@ def multihost_nccl(dev, card):
                 f'Pre-Loss {float(r["Pre-Loss"]):.5f}, Post-Loss '
                 f'{float(r["Post-Loss"]):.5f}')
 
+        check_captured(trainer.sampler, 'phase 17 (a) run_grbal_multihost '
+                       '(nccl)')
         model = trainer.dynamics_model
         compiled_fits(model, 'phase 17 (a) run_grbal_multihost (nccl)')
         gen = torch.Generator(device=dev)
@@ -2401,8 +2559,7 @@ def main():
     kernels[1].update(check_jacobi_ant(dev))
     stamp('kernels')
     launches, sampler = main_path(dev, card)
-    profile_policy_steps(dev, sampler)
-    check_host_syncs(dev, sampler)
+    sampling_profile(sampler, 'GrBAL', card)
     stamp('GrBAL sampling')
     # the trainers' snapshots, for the meta-test phase; removed on exit
     snaps = tempfile.TemporaryDirectory(prefix='chip_smoke_snapshots_')

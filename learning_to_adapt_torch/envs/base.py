@@ -43,17 +43,48 @@ class EnvState:
     rng: Any = None   # torch.Generator of the action noise (the reset's)
 
 
-def state_rows(state: EnvState, rows) -> EnvState:
-    """The EnvState of the envs at `rows` (a slice of the env axis); the
-    generator is shared."""
-    def take(obj):
+def map_state(fn, state: EnvState) -> EnvState:
+    """The EnvState of fn applied to each of its tensors; the generator is
+    shared."""
+    def each(obj):
         return dataclasses.replace(obj, **{
-            f.name: getattr(obj, f.name)[rows]
+            f.name: fn(getattr(obj, f.name))
             for f in dataclasses.fields(obj)})
-    return EnvState(phys=take(state.phys), mm=take(state.mm),
-                    task={k: v[rows] for k, v in state.task.items()},
-                    obs=state.obs[rows], t=state.t[rows],
-                    episode=state.episode[rows], rng=state.rng)
+    return EnvState(phys=each(state.phys), mm=each(state.mm),
+                    task={k: fn(v) for k, v in state.task.items()},
+                    obs=fn(state.obs), t=fn(state.t),
+                    episode=fn(state.episode), rng=state.rng)
+
+
+def state_rows(state: EnvState, rows) -> EnvState:
+    """The EnvState of the envs at `rows` (a slice of the env axis)."""
+    return map_state(lambda x: x[rows], state)
+
+
+def static_state(state: EnvState) -> EnvState:
+    """A copy of `state` whose every tensor is contiguous with storage of
+    its own: the MutableModel's broadcast (stride-0) fields are written out
+    per env, so that `load_state` can copy any reset's values into it."""
+    return map_state(
+        lambda x: x.clone(memory_format=torch.contiguous_format), state)
+
+
+def _tensors(state: EnvState):
+    return [state.phys.qpos, state.phys.qvel] + [
+        getattr(state.mm, f.name) for f in dataclasses.fields(state.mm)] + [
+        state.task[k] for k in sorted(state.task)] + [
+        state.obs, state.t, state.episode]
+
+
+@torch.no_grad()
+def load_state(dst: EnvState, src: EnvState):
+    """Copies src's tensors into dst's (a `static_state`); raises unless
+    the two hold the same task fields."""
+    if sorted(dst.task) != sorted(src.task):
+        raise ValueError(f'task fields {sorted(src.task)} != the static '
+                         f'state\'s {sorted(dst.task)}')
+    for d, s in zip(_tensors(dst), _tensors(src), strict=True):
+        d.copy_(s)
 
 
 class TorchEnv(Serializable):

@@ -38,9 +38,19 @@ Before its capture a step runs WARMUP times on a side stream, which sets
 up cuBLAS's and cuDNN's workspaces, autograd's lazy state and an NCCL
 communicator as the PyTorch CUDA-graph notes require; the warm-ups change
 the state, so the fit loads it after capturing. The collective counters
-of parallel/mesh.py count a captured step's collectives once a replay;
-the warm-ups' and the capture's are kept out of them, in the StepGraph.
+of parallel/mesh.py and the kernel counters of ops/ (`kernel_counts`)
+count a captured step's collectives and launches once a replay; the
+warm-ups' and the capture's are kept out of them, in the StepGraph.
+
+samplers/rollout.py's CompiledRollout captures a sampling step with the
+same StepGraph. Its step draws from a generator: the StepGraph registers
+that generator with the graph, so each replay takes the draws the eager
+step would take from the generator's state and advances it as far, and
+it leaves the generator where it found it after the warm-ups and the
+capture. Its graphs share one memory pool, as they replay one after the
+other.
 """
+import gc
 import time
 from types import SimpleNamespace
 
@@ -48,6 +58,7 @@ import torch
 from torch.profiler import record_function
 
 from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
+from learning_to_adapt_torch.ops import fused_mlp, jacobi
 from learning_to_adapt_torch.parallel import mesh as par_mesh
 
 WARMUP = 3  # step calls on a side stream before a capture
@@ -136,31 +147,61 @@ def run_epoch(st, steps, steps_valid, train_step, valid_step):
             valid_step()
 
 
+def kernel_counts():
+    """The kernel counters of ops/: fused-MLP launches, weight packs and
+    both Jacobi kernels' launches."""
+    return dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
+                pack=fused_mlp.pack_weights.calls,
+                jacobi_solve=jacobi.jacobi_solve.launches,
+                jacobi_solve_cluster=jacobi.jacobi_solve_cluster.launches)
+
+
+def count_kernels(counts):
+    """Adds counts (as kernel_counts() gives them) to the kernel counters:
+    a captured step's launches at each replay."""
+    fused_mlp.fused_mlp_forward.launches += counts['fused_mlp']
+    fused_mlp.pack_weights.calls += counts['pack']
+    jacobi.jacobi_solve.launches += counts['jacobi_solve']
+    jacobi.jacobi_solve_cluster.launches += counts['jacobi_solve_cluster']
+
+
+def _counts():
+    return par_mesh.collective_counts(), kernel_counts()
+
+
 def _diff(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
 class StepGraph:
     """fn() captured once as a CUDA graph (`capture`) and replayed by each
-    call; `replays` counts the calls. On a CPU device a call runs fn (the
-    tests drive a CompiledEpoch's state handling that way; fit runs
-    epoch_fn there)."""
+    call; `replays` counts the calls. `generator`, when given, is the one
+    fn draws from (registered with the graph); `pool`, a memory pool the
+    graph shares with others that replay one after the other. On a CPU
+    device a call runs fn (the tests drive a CompiledEpoch's state
+    handling and a CompiledRollout's that way; fit runs epoch_fn
+    there)."""
 
-    def __init__(self, fn, device):
+    def __init__(self, fn, device, generator=None, pool=None):
         self.fn = fn
         self.device = torch.device(device)
+        self.generator = generator
+        self.pool = pool
         self.graph = None
         self.replays = 0
         self.capture_s = 0.0
         self.collectives = self.warmup_collectives = None
+        self.kernels = self.warmup_kernels = None
 
     @torch.no_grad()
     def capture(self, reset):
         """WARMUP calls on a side stream, then one call under capture;
-        reset() runs before each (outside the graph). Raises if the
+        reset() runs before each (outside the graph). The generator's
+        state is put back as it was before the warm-ups. Raises if the
         capture fails."""
         t0 = time.perf_counter()
-        before = par_mesh.collective_counts()
+        rng = None if self.generator is None else self.generator.get_state()
+        before = _counts()
         stream = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
@@ -170,16 +211,32 @@ class StepGraph:
                 self.fn()
         stream.wait_stream(side)
         reset()
-        warm = par_mesh.collective_counts()
+        warm = _counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.fn()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        # a graph destroyed during a capture (by a collection of the cycle
+        # that held it) invalidates the capture: collect before, not during
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(self.device)
-        after = par_mesh.collective_counts()
-        self.warmup_collectives = _diff(warm, before)
-        self.collectives = _diff(after, warm)
+        after = _counts()
+        if rng is not None:
+            self.generator.set_state(rng)
+        (self.warmup_collectives, self.warmup_kernels) = (
+            _diff(w, b) for w, b in zip(warm, before))
+        self.collectives, self.kernels = (
+            _diff(a, w) for a, w in zip(after, warm))
         par_mesh.count_collectives(
-            {k: -n for k, n in _diff(after, before).items()})
+            {k: -n for k, n in _diff(after[0], before[0]).items()})
+        count_kernels({k: -n for k, n in _diff(after[1], before[1]).items()})
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
 
@@ -190,6 +247,7 @@ class StepGraph:
         self.graph.replay()
         self.replays += 1
         par_mesh.count_collectives(self.collectives)
+        count_kernels(self.kernels)
 
 
 class CompiledEpoch:

@@ -371,10 +371,11 @@ class MLPDynamicsModel:
                     [b.unsqueeze(0) for b in params['b']])
         return params['w'], params['b']
 
-    def pack(self, params):
+    def pack(self, params, out=None):
         """The kernel's weight stream for params, made once and reused by
-        every prediction of a sampling call."""
-        return pack_weights(*self._grouped(params))
+        every prediction of a sampling call; `out`, a pack of the same
+        shapes to write in place (ops/fused_mlp.py pack_weights)."""
+        return pack_weights(*self._grouped(params), out=out)
 
     def predict_fn(self, params, norm, obs, act):
         """obs/act rows (N, d) -> next obs (N, obs_dim): the planner path,

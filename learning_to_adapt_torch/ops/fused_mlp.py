@@ -177,12 +177,15 @@ def _dims(ws, bs):
     return tuple(dims)
 
 
-def pack_weights(ws, bs):
+def pack_weights(ws, bs, out=None):
     """Round ws[l] (G, k_l, n_l) f32 to bf16 (nearest even) and pack them
     into the kernel's tile stream; bs[l] (G, n_l) stay f32. Weights that are
     one set broadcast over the groups (stride 0, as `broadcast_params`
     gives) pack one group and keep stride 0. Three tensor ops: concatenate,
-    round, gather into tile order."""
+    round, gather into tile order. `out`: a PackedMLP of the same widths,
+    groups and sharing, packed again in place, so that its weight stream
+    and biases keep the addresses a captured graph launches the kernel
+    with (samplers/rollout.py); else a new one."""
     dims = _dims(ws, bs)
     dev = ws[0].device
     for t_ in list(ws) + list(bs):
@@ -197,10 +200,21 @@ def pack_weights(ws, bs):
         zero = _ZERO[dev] = torch.zeros((1, 1), device=dev)
     flat = torch.cat([w[:rows].reshape(rows, -1) for w in ws] +
                      [zero.expand(rows, 1)], dim=1).to(torch.bfloat16)
-    w = flat.index_select(1, _pack_index(dims, dev))
     bs = tuple(b if b.stride(1) == 1 else b.contiguous() for b in bs)
+    if out is None:
+        w = flat.index_select(1, _pack_index(dims, dev))
+        pack_weights.calls += 1
+        return PackedMLP(w.expand(g, -1), bs, dims)
+    if out.dims != dims or out.groups != g or rows != (
+            1 if out.w.stride(0) == 0 else g):
+        raise ValueError(f'fused_mlp: cannot pack {g} groups of widths '
+                         f'{dims} into one packed for {out.groups} groups '
+                         f'of widths {out.dims}')
+    torch.index_select(flat, 1, _pack_index(dims, dev), out=out.w[:rows])
+    for d, b in zip(out.bs, bs):
+        d.copy_(b)
     pack_weights.calls += 1
-    return PackedMLP(w.expand(g, -1), bs, dims)
+    return out
 
 
 #: packs since the count was last set to 0

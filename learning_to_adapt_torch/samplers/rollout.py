@@ -7,13 +7,26 @@ Per step, for all envs at once:
      threading the recurrent model's hidden state (ReBAL)
   -> batched physics step.
 
-The time axis runs in segments (default <= 125 steps) as in the JAX
-package, where a segment is the unit that compiles; here a segment is the
-unit of Python loop whose outputs are stacked on the device. The carry
-(env states, then the GrBAL adaptation window or the ReBAL hidden state,
-which starts at zero on every call) stays on the device, and no step reads
-a value back to the host: the step index and the adaptation gate are host
-integers.
+The carry (env states, then the GrBAL adaptation window or the ReBAL
+hidden state, which starts at zero on every call) stays on the device, and
+no step reads a value back to the host: the step index and the host
+branches it decides (`branch`: the adaptation gate, the frozen hidden
+state's warm-up) are host integers.
+
+Two callers run the same step function:
+
+  eager      `rollout` runs the time axis in segments (default <= 125
+             steps) as the JAX package does, each a Python loop of steps
+             whose outputs are stacked on the device;
+  compiled   CompiledRollout, the counterpart of the JAX package's
+             segment_jit: the step on a static carry, captured once as a
+             CUDA graph for each side of the host branches
+             (models/captured.py StepGraph) and replayed for every step.
+
+The rule is the compiled fits' (models/captured.py `captures`): compiled on
+a CUDA device without a mesh or with a mesh over nccl (no step makes a
+collective), eager on the CPU (the tests) and over gloo. Nothing falls
+back: a capture that fails raises from the sampling call.
 
 The planner's MLP weights are packed for the fused-MLP kernel once per
 step for GrBAL (adapted, or the pre-update set broadcast to every env), and
@@ -28,16 +41,24 @@ made for all m envs from the sampler's generator, seeded alike on every
 rank, in the order a 1-rank run makes it; each rank keeps its rows, so the
 W-rank paths are the 1-rank paths.
 
-Each step's parts are labelled for torch.profiler: 'rollout.plan' (with
-'rollout.adapt' inside it once adaptation is on, and 'rollout.pack') and
-'rollout.env_step'; MB-MPC's one pack per call is labelled 'rollout.pack'.
+Each eager step's parts are labelled for torch.profiler: 'rollout.plan'
+(with 'rollout.adapt' inside it once adaptation is on, and
+'rollout.pack') and 'rollout.env_step'; MB-MPC's one pack per call is
+labelled 'rollout.pack'. A captured step's labels fire at its capture
+only: each replay is labelled 'rollout.step'.
 """
+import dataclasses
+import functools
+
 import torch
 from torch.profiler import record_function
 
-from learning_to_adapt_torch.envs.base import state_rows
+from learning_to_adapt_torch.envs.base import (
+    load_state, state_rows, static_state)
+from learning_to_adapt_torch.models import captured
 from learning_to_adapt_torch.models.meta_mlp import MetaMLPDynamicsModel
 from learning_to_adapt_torch.models.mlp import MLPDynamicsModel
+from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
 from learning_to_adapt_torch.models.rnn import RNNDynamicsModel
 from learning_to_adapt_torch.ops.fused_mlp import pack_weights
 from learning_to_adapt_torch.parallel import mesh as par_mesh
@@ -61,8 +82,10 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
     recurrent model. Returns fn(params, normalizer, generator, episode_idx)
     -> paths dict of tensors [num_rollouts, T, ...], or with `mesh` this
     rank's share [num_rollouts / W, T, ...] (num_rollouts must divide over
-    the mesh's 'env' axis). fn.init_carry and fn.step_fn are exposed for
-    tests.
+    the mesh's 'env' axis): a CompiledRollout where `captured.captures`
+    holds for the env's device and the mesh, else the eager rollout.
+    fn.eager is the eager rollout; fn.init_carry, fn.step_fn and
+    fn.branch are exposed for tests.
 
     ablate_hidden (recurrent models only) isolates ReBAL's adaptation, the
     hidden state's update by each real transition:
@@ -89,6 +112,13 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
         raise ValueError('ablate_hidden applies to recurrent models only')
     # the GrBAL window; the recurrent model adapts by its hidden state
     a_bs = None if is_rnn else adapt_batch_size
+
+    def branch(t):
+        """The host branches step t takes: (per-env adaptation is on, the
+        recurrent hidden state is frozen)."""
+        return (not random and is_meta and bool(a_bs) and t > a_bs + 1,
+                not random and ablate_hidden == 'frozen' and
+                t >= ablate_warmup)
 
     def init_carry(generator, episode_idx):
         """(env states, the GrBAL window (h_obs, h_act) or the recurrent
@@ -118,8 +148,7 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
         actions, h_new = policy.plan_fn_recurrent(
             predict_h, obs, h_in, generator, candidates=candidates,
             normals=normals)
-        if ablate_hidden == 'zero' or (ablate_hidden == 'frozen' and
-                                       t >= ablate_warmup):
+        if ablate_hidden == 'zero' or branch(t)[1]:
             h_new = hidden  # the carry stays as it was
         return actions, h_new
 
@@ -130,7 +159,7 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
                 return dynamics_model.predict_fn(params, norm, o_rows, a_rows)
             return policy.plan_fn(predict, obs, generator,
                                   candidates=candidates, normals=normals)
-        if a_bs is not None and t > a_bs + 1:
+        if branch(t)[0]:
             # per-env fast adaptation on the trailing window: the last a_bs
             # transitions are (h_obs[:-1], h_act, h_obs[1:])
             h_obs, h_act = hist
@@ -229,4 +258,143 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
 
     rollout.init_carry = init_carry
     rollout.step_fn = step_fn
-    return rollout
+    rollout.branch = branch
+    rollout.eager = rollout
+    device = base_env.device
+    if not captured.captures(device, mesh):
+        return rollout
+    return CompiledRollout(
+        rollout, t_len, device,
+        dynamics_model.pack if is_mlp and not random else None)
+
+
+def _leaves(tree):
+    return [] if tree is None else tree_leaves(tree)
+
+
+class CompiledRollout:
+    """A rollout whose step runs on a static carry, captured once as a CUDA
+    graph (models/captured.py StepGraph) for each side of the host
+    branches (`branch`: GrBAL before and after its adaptation gate, ReBAL's
+    frozen ablation before and after its warm-up; one graph otherwise) and
+    replayed for every step of every call. On a CPU device (the tests) the
+    step runs as a plain call.
+
+    The static carry holds the env states (`static_state`), the GrBAL
+    window or the recurrent hidden state, the params and normalizer the
+    step reads (for MB-MPC their pack, packed again in place at each
+    call), the paths [m, T, ...] written at a device step counter, and the
+    counter. A call draws its reset eagerly (as the JAX package runs
+    init_jit apart from segment_jit), copies it, the params and the
+    normalizer in, replays T steps and returns copies of the paths, which
+    the next call does not overwrite.
+
+    The steps draw from this object's own generator, registered with its
+    graphs: a call sets it to the caller's generator's state and hands its
+    state back at the end, so the draws are the eager rollout's and the
+    caller's generator ends where the eager rollout leaves it."""
+
+    def __init__(self, eager, t_len, device, pack=None):
+        self.eager = eager
+        self.init_carry = eager.init_carry
+        self.step_fn = eager.step_fn
+        self.branch = eager.branch
+        self.t_len = t_len
+        self.device = torch.device(device)
+        self.pack = pack
+        self.generator = torch.Generator(device=self.device)
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.device.type == 'cuda' else None)
+        self.graphs = {}            # branch key -> StepGraph
+        self.states = self.aux = self.params = self.norm = None
+        self.step_params = self.paths = self.counter = None
+
+    @torch.no_grad()
+    def load_carry(self, carry):
+        """Copies a carry (env states, aux) into the static one (made on
+        the first call) and sets the step counter to 0."""
+        states, aux = carry
+        if self.states is None:
+            self.states = dataclasses.replace(static_state(states),
+                                              rng=self.generator)
+            self.aux = None if aux is None else tree_map(torch.clone, aux)
+            self.counter = torch.zeros(1, dtype=torch.int64,
+                                       device=self.device)
+        load_state(self.states, states)
+        for d, s in zip(_leaves(self.aux), _leaves(aux), strict=True):
+            d.copy_(s)
+        self.counter.zero_()
+
+    @torch.no_grad()
+    def prepare(self, params, norm, carry):
+        """Copies params, the normalizer and a carry into the static
+        buffers (made on the first call); packs MB-MPC's weights."""
+        if self.params is None:
+            self.params = tree_map(torch.clone, params)
+            self.norm = captured.clone_normalizer(norm)
+        for d, s in zip(tree_leaves(self.params), tree_leaves(params),
+                        strict=True):
+            d.copy_(s)
+        for d, s in zip(vars(self.norm).values(), vars(norm).values(),
+                        strict=True):
+            d.copy_(s)
+        if self.pack is None:
+            self.step_params = self.params
+        else:
+            with record_function('rollout.pack'):
+                self.step_params = self.pack(self.params,
+                                             out=self.step_params)
+        self.load_carry(carry)
+
+    @torch.no_grad()
+    def step(self, t, candidates=None, normals=None):
+        """One step at global step t (a host int, read for the branches
+        only) on the static carry: its outputs go to the paths at the step
+        counter, the next carry back into the static one. candidates /
+        normals: injected draws, as for step_fn."""
+        (states, aux), out = self.step_fn(
+            self.step_params, self.norm, (self.states, self.aux), t,
+            self.generator, candidates=candidates, normals=normals)
+        if self.paths is None:
+            self.paths = {k: torch.empty(
+                (v.shape[0], self.t_len) + tuple(v.shape[1:]),
+                dtype=v.dtype, device=v.device) for k, v in out.items()}
+        for k, v in out.items():
+            self.paths[k].index_copy_(1, self.counter, v.unsqueeze(1))
+        self.counter += 1
+        load_state(self.states, states)
+        for d, s in zip(_leaves(self.aux), _leaves(aux), strict=True):
+            d.copy_(s)
+
+    @torch.no_grad()
+    def __call__(self, params, norm, generator, episode_idx):
+        gen = self.generator
+        gen.set_state(generator.get_state())
+        carry = self.init_carry(gen, episode_idx)
+        self.prepare(params, norm, carry)
+        first = {}
+        for t in range(self.t_len):
+            first.setdefault(self.branch(t), t)
+        missing = [(k, t) for k, t in first.items() if k not in self.graphs]
+        for key, t in missing:
+            graph = captured.StepGraph(functools.partial(self.step, t),
+                                       self.device, gen, self.pool)
+            if self.device.type == 'cuda':
+                graph.capture(lambda: self.load_carry(carry))
+            self.graphs[key] = graph
+        if missing:
+            self.load_carry(carry)
+        for t in range(self.t_len):
+            with record_function('rollout.step'):
+                self.graphs[self.branch(t)]()
+        generator.set_state(gen.get_state())
+        return {k: v.clone() for k, v in self.paths.items()}
+
+    @property
+    def capture_s(self):
+        """Seconds of every capture so far, warm-ups included."""
+        return sum(g.capture_s for g in self.graphs.values())
+
+    @property
+    def replays(self):
+        return sum(g.replays for g in self.graphs.values())

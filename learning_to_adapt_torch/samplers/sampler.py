@@ -5,6 +5,12 @@ steps its share of the envs on its own device, and one all_gather a call
 brings every path to every rank, so the host-side fit and logging see all
 of them.
 
+On a CUDA device (without a mesh, or over nccl) a call replays the
+rollout's step captured as CUDA graphs (samplers/rollout.py
+CompiledRollout), captured in the first call of each kind (random,
+policy), whose `last_seconds` include the capture; on the CPU and over
+gloo the step runs eagerly. Either leaves the generator in the same state.
+
 Its state (the generator, the episode counter) is tied to the generator's
 device type: a CUDA generator's stream does not continue on the CPU.
 """
