@@ -130,7 +130,7 @@ Phases, each of which raises (exit code != 0) on failure:
  15. print the card line again, one JSON line describing every kernel
      (with its launches on each algorithm's and env's path, on the
      meta-test's and on the multi-rank path's), then the contract line
-     {"ok": true, "device": {...}} last, after phase 17;
+     {"ok": true, "device": {...}} last, after phase 18;
  16. the meta-test protocol and host tools, on the snapshots phases 6, 8,
      9 and 14 wrote (copied from their temporary directories): (a)
      meta_test.main on the Ant GrBAL snapshot (trained on legs 0, 1, 2)
@@ -176,7 +176,13 @@ Phases, each of which raises (exit code != 0) on failure:
      best two returns within twice the two jobs' return difference), and its
      reward sum to rtol 2e-3 where nothing parts; 10 fused-MLP launches a
      policy step on every rank; the phase's seconds and each job's policy
-     env-steps/s are printed.
+     env-steps/s are printed;
+ 18. the port's renderer on the card (learning_to_adapt_torch/
+     render_trajectory.py, interactive_viewer.py) on phase 16 (c)'s replay
+     (HalfCheetah, 2 x 100 steps): render_frames of each rollout at the
+     HTML viewer's stride 4 on the card against the same call on the CPU
+     (atol 1e-5), and the HTML viewer exported from the card to a
+     temporary directory; the frame count and the seconds are printed.
 
 Profiler windows are read from their raw kineto events (Trace): building
 the profiler's FunctionEvents takes tens of seconds a window. A sampling
@@ -254,6 +260,8 @@ FIT_CHECK_STEPS = 8
 FIT_PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 FIT_LOSS_RTOL = 1e-5
 JACOBI_TOL = dict(rtol=1e-4, atol=1e-5)  # f32, other summation order
+RENDER_STRIDE = 4                     # the HTML viewer's default stride
+RENDER_ATOL = 1e-5                    # FK at f32, card against the CPU
 
 
 def log(msg):
@@ -2100,7 +2108,7 @@ def meta_test_phase(dev, card, snap):
         raise AssertionError(f'entry(): launches {launched}')
     if not torch.allclose(got, plain, **MLP_TOL):
         raise AssertionError(f'entry(): kernel vs plain {err}')
-    return grbal_total
+    return grbal_total, replay
 
 
 # phase 17: the multi-rank path. (a) one rank over nccl, at full width:
@@ -2526,6 +2534,54 @@ def multihost_phase(dev, card):
     return launches
 
 
+def render_phase(dev, card, replay):
+    """Phase 18: the port's renderer on the card, on phase 16 (c)'s replay:
+    render_frames of each rollout at the viewer's stride on the card against
+    the same call on the CPU, and the HTML viewer exported from the card to
+    a temporary directory."""
+    import numpy as np
+    from learning_to_adapt_torch import interactive_viewer
+    from learning_to_adapt_torch.envs.model_defs import get_model
+    from learning_to_adapt_torch.render_trajectory import render_frames
+
+    t0 = time.time()
+    model = get_model('half_cheetah')
+    worst, n_frames = 0.0, 0
+    for qpos in replay['qpos']:
+        on_card = render_frames(qpos, model, stride=RENDER_STRIDE, device=dev)
+        on_cpu = render_frames(qpos, model, stride=RENDER_STRIDE,
+                               device='cpu')
+        if len(on_card) != -(-len(qpos) // RENDER_STRIDE) or len(
+                on_card) != len(on_cpu):
+            raise AssertionError(f'render: {len(on_card)} frames on the '
+                                 f'card, {len(on_cpu)} on the CPU')
+        for (segs, spheres), (csegs, cspheres) in zip(on_card, on_cpu):
+            if not segs or len(segs) != len(csegs) or len(spheres) != len(
+                    cspheres):
+                raise AssertionError('render: frames differ in their parts')
+            for a, b in zip(segs + spheres, csegs + cspheres):
+                for x, y in zip(a, b):
+                    diff = np.abs(np.asarray(x) - np.asarray(y))
+                    if not np.isfinite(diff).all():
+                        raise AssertionError('render: non-finite frame')
+                    worst = max(worst, float(diff.max()))
+        n_frames += len(on_card)
+    if worst > RENDER_ATOL:
+        raise AssertionError(f'render: card vs CPU {worst} > {RENDER_ATOL}')
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, 'replay.npz')
+        np.savez(npz, **replay)
+        html = interactive_viewer.export_html(
+            npz, 'half_cheetah', stride=RENDER_STRIDE,
+            out=os.path.join(tmp, 'replay.html'), device=dev)
+        size = os.path.getsize(html)
+    log(f'phase 18 render on {card}: {n_frames} frames of '
+        f'{replay["qpos"].shape[0]} x {replay["qpos"].shape[1]} replayed '
+        f'steps (stride {RENDER_STRIDE}), card vs CPU max |diff| '
+        f'{worst:.3e} (atol {RENDER_ATOL}), HTML {size} bytes, '
+        f'{time.time() - t0:.1f} s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2610,11 +2666,13 @@ def main():
                                      ANT_MB_HEADER, 'jacobi_solve',
                                      module='run_mb_mpc', n_itr=1)
     stamp('MB-MPC on AntEnv')
-    meta_test_launches = meta_test_phase(dev, card, snap)
+    meta_test_launches, replay = meta_test_phase(dev, card, snap)
     snaps.cleanup()
     stamp('meta-test, replay, executor and entry()')
     multihost_launches = multihost_phase(dev, card)
     stamp('multi-rank path')
+    render_phase(dev, card, replay)
+    stamp('render')
     for k in kernels:
         # the cluster kernel's main path is the blocks env's
         k['launches'] = (env_itr['HalfCheetahBlocksEnv'][k['name']]

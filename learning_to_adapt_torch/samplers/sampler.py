@@ -62,6 +62,12 @@ class Sampler:
                 ablate_warmup=self.ablate_warmup, mesh=self.mesh)
         return self._fns[random]
 
+    def graph_counts(self):
+        """The captured step graphs of each rollout function made so far,
+        by its `random` flag (0 where it runs eagerly)."""
+        return {str(k): len(getattr(fn, 'graphs', {}))
+                for k, fn in self._fns.items()}
+
     def obtain_samples(self, log=False, log_prefix='', random=False):
         """Returns a dict of numpy arrays [num_rollouts, T, ...]."""
         t0 = time.time()

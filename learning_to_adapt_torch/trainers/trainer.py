@@ -3,11 +3,15 @@
 Per-iteration loop: obtain samples (uniform-random actions on iteration 0
 when initial_random_samples) -> process -> fit dynamics model -> log named
 timing segments (Time-EnvSampling / Time-EnvSampleProc / Time-ModelFit) ->
-snapshot. The progress.csv keys and their order are the JAX trainer's.
+snapshot. The progress.csv keys and their order are the JAX trainer's;
+what the port adds goes to iterations.jsonl beside it (`record_iteration`).
 """
 import contextlib
+import json
 import os
 import time
+
+import torch
 
 from learning_to_adapt_torch.utils import logging as logger
 
@@ -99,7 +103,29 @@ class Trainer:
             logger.logkv('Time-Snapshot', time.time() - t)
 
             logger.dumpkvs()
+            self.record_iteration(itr)
         logger.log('Training finished')
+
+    def record_iteration(self, itr):
+        """Appends one JSON line to iterations.jsonl in the log directory
+        (none where the logger writes nothing): the fit's captured shape
+        keys, the sampler's captured step graphs and, on the card, the
+        allocated, peak and reserved bytes. A --resume appends to it, and
+        its process captures anew."""
+        log_dir = logger.get_dir()
+        if log_dir is None:
+            return
+        model = self.dynamics_model
+        rec = dict(itr=itr,
+                   fit_keys=[list(k) for k in
+                             getattr(model, '_epoch_cache', {})],
+                   sampler_graphs=self.sampler.graph_counts())
+        if model.device.type == 'cuda':
+            rec.update(mem_allocated=torch.cuda.memory_allocated(model.device),
+                       mem_peak=torch.cuda.max_memory_allocated(model.device),
+                       mem_reserved=torch.cuda.memory_reserved(model.device))
+        with open(os.path.join(log_dir, 'iterations.jsonl'), 'a') as f:
+            f.write(json.dumps(rec) + '\n')
 
     def get_itr_snapshot(self, itr):
         # the env rides along as a Serializable (constructor replay); model,

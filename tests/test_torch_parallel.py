@@ -506,13 +506,15 @@ def test_members_over_the_model_axis_step_independently(runs):
 
 
 def test_run_grbal_multihost_writes_from_rank_zero_only(runs):
-    """Rank 0 writes the experiment (run_grbal's progress.csv header);
-    rank 1 writes nothing; 3 rollouts round up to 4 on two ranks, and the
-    losses and returns are the 1-rank run's."""
+    """Rank 0 writes the experiment (run_grbal's progress.csv header, and
+    the Trainer's iterations.jsonl); rank 1 writes nothing; 3 rollouts
+    round up to 4 on two ranks, and the losses and returns are the 1-rank
+    run's."""
     (_, r0), (_, r1) = runs['pair']
     single = runs['single'][1]
     assert r0['trainer_files'] == single['trainer_files'] == [
-        'log.txt', 'params.json', 'params.pkl', 'progress.csv']
+        'iterations.jsonl', 'log.txt', 'params.json', 'params.pkl',
+        'progress.csv']
     assert r1['trainer_written'] == []
     assert r0['trainer_num_rollouts'] == r1['trainer_num_rollouts'] == 4
     with open(HEADER_CSV) as f:
