@@ -20,7 +20,7 @@ from learning_to_adapt_torch.envs import (
     HalfCheetahHFieldEnv, normalize)
 from learning_to_adapt_torch.samplers import ModelSampleProcessor, Sampler
 from learning_to_adapt_torch.trainers import Trainer
-from learning_to_adapt_torch.utils import logging as logger
+from learning_to_adapt_torch.utils import logging as logger, tracing
 from learning_to_adapt_torch.utils.checkpoint import resume_trainer
 from learning_to_adapt_torch.utils.config import (
     ClassEncoder, add_task_distribution_args, apply_task_distribution_args,
@@ -53,7 +53,8 @@ class EntryPoint:
         every tensor, or with `mesh` the mesh's device: the sampler's envs
         and the model's fit then shard over the mesh's 'env' axis, and the
         ranks other than 0 log and snapshot nothing, so that the ranks do
-        not race on one progress.csv."""
+        not race on one progress.csv. config['spans'] (--spans) turns
+        tracing on for the run (utils/tracing.py)."""
         # raises before anything is written when the card is missing
         device = (mesh.device if mesh is not None
                   else resolve_device(config.get('device', 'cuda')))
@@ -110,7 +111,12 @@ class EntryPoint:
             profile_dir=(os.path.join(exp_dir, 'profile')
                          if config.get('profile') else None),
         )
-        algo.train()
+        was = tracing.enabled()
+        tracing.enable(was or bool(config.get('spans')))
+        try:
+            algo.train()
+        finally:
+            tracing.enable(was)
         return algo
 
     def parse_args(self, argv=None):
@@ -123,6 +129,11 @@ class EntryPoint:
         p.add_argument('--profile', action='store_true',
                        help='capture torch.profiler traces of one sampling '
                             'iteration and one model fit into <exp>/profile')
+        p.add_argument('--spans', action='store_true',
+                       help='record the spans of utils/tracing.py (the '
+                            'device parts of the captured steps included); '
+                            'each iteration adds their totals to '
+                            '<exp>/iterations.jsonl')
         p.add_argument('--env', type=str, default=None,
                        help='env class name (default HalfCheetahEnv); one '
                             f'of {", ".join(sorted(ENVS))}')
@@ -148,6 +159,7 @@ class EntryPoint:
         cfg['resume'] = args.resume
         cfg['seed'] = args.seed
         cfg['profile'] = args.profile
+        cfg['spans'] = args.spans
         cfg['device'] = args.device
         if args.n_itr:
             cfg['n_itr'] = args.n_itr

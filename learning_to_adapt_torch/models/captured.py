@@ -49,17 +49,26 @@ step would take from the generator's state and advances it as far, and
 it leaves the generator where it found it after the warm-ups and the
 capture. Its graphs share one memory pool, as they replay one after the
 other.
+
+Spans (utils/tracing.py): a host span around each replay ('fit.train_step',
+'fit.valid_step', 'rollout.step'); with tracing on, a StepGraph captures
+its step's device stamps (the step's begin and end, and the spans inside
+it: 'fit.loss', 'fit.grad', 'fit.optim'; 'rollout.plan', 'rollout.adapt',
+'rollout.env_step'), which fire at every replay. The graphs are kept by
+the tracing state at their capture, so stamped copies stand beside the
+graphs captured with tracing off and leave them as they were. Every
+capture counts 'graph.captures' and 'graph.capture_s'.
 """
 import gc
 import time
 from types import SimpleNamespace
 
 import torch
-from torch.profiler import record_function
 
 from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
 from learning_to_adapt_torch.ops import fused_mlp, jacobi
 from learning_to_adapt_torch.parallel import mesh as par_mesh
+from learning_to_adapt_torch.utils import tracing
 
 WARMUP = 3  # step calls on a side stream before a capture
 
@@ -134,16 +143,16 @@ def set_table(table, rows):
 @torch.no_grad()
 def run_epoch(st, steps, steps_valid, train_step, valid_step):
     """steps train steps, then steps_valid validation steps, from step
-    counter 0 and loss sums 0; each call is labelled 'fit.train_step' or
-    'fit.valid_step' for torch.profiler (a replayed graph's own labels
-    fire only at its capture). Nothing here waits for the device."""
+    counter 0 and loss sums 0; each call is the span 'fit.train_step' or
+    'fit.valid_step' (a replay's host side; the spans inside a captured
+    step are its device stamps). Nothing here waits for the device."""
     st.counter.zero_()
     st.sums.zero_()
     for _ in range(steps):
-        with record_function('fit.train_step'):
+        with tracing.span('fit.train_step'):
             train_step()
     for _ in range(steps_valid):
-        with record_function('fit.valid_step'):
+        with tracing.span('fit.valid_step'):
             valid_step()
 
 
@@ -177,17 +186,21 @@ class StepGraph:
     """fn() captured once as a CUDA graph (`capture`) and replayed by each
     call; `replays` counts the calls. `generator`, when given, is the one
     fn draws from (registered with the graph); `pool`, a memory pool the
-    graph shares with others that replay one after the other. On a CPU
+    graph shares with others that replay one after the other; `name`, the
+    step's span. Captured with tracing on, the graph holds the step's
+    device stamps (`stamps`, their slots), read with the call's. On a CPU
     device a call runs fn (the tests drive a CompiledEpoch's state
     handling and a CompiledRollout's that way; fit runs epoch_fn
     there)."""
 
-    def __init__(self, fn, device, generator=None, pool=None):
+    def __init__(self, fn, device, generator=None, pool=None, name='step'):
         self.fn = fn
         self.device = torch.device(device)
         self.generator = generator
         self.pool = pool
+        self.name = name
         self.graph = None
+        self.stamps = ()
         self.replays = 0
         self.capture_s = 0.0
         self.collectives = self.warmup_collectives = None
@@ -200,12 +213,14 @@ class StepGraph:
         state is put back as it was before the warm-ups. Raises if the
         capture fails."""
         t0 = time.perf_counter()
+        if tracing.enabled():
+            tracing.prepare(self.device)
         rng = None if self.generator is None else self.generator.get_state()
         before = _counts()
         stream = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), tracing.quiet():
             for _ in range(WARMUP):
                 reset()
                 self.fn()
@@ -222,7 +237,8 @@ class StepGraph:
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
-                self.fn()
+                with tracing.stamps(self.name, self.device) as stamped:
+                    self.fn()
         finally:
             if collecting:
                 gc.enable()
@@ -238,7 +254,10 @@ class StepGraph:
             {k: -n for k, n in _diff(after[0], before[0]).items()})
         count_kernels({k: -n for k, n in _diff(after[1], before[1]).items()})
         self.graph = graph
+        self.stamps = stamped.slots
         self.capture_s = time.perf_counter() - t0
+        tracing.count('graph.captures')
+        tracing.count('graph.capture_s', self.capture_s)
 
     def __call__(self):
         if self.device.type != 'cuda':
@@ -246,19 +265,50 @@ class StepGraph:
             return
         self.graph.replay()
         self.replays += 1
+        if self.stamps:
+            tracing.replayed(self.device, self.stamps)
         par_mesh.count_collectives(self.collectives)
         count_kernels(self.kernels)
 
 
 class CompiledEpoch:
     """One shape key's static fit state and its two steps, captured on
-    the first `prepare`, which loads the state (load(st)) before and, on
-    a capture, again after it."""
+    the first `prepare` under each tracing state (`graphs`: tracing on at
+    the capture -> (train, valid) StepGraphs on the one state; `train` and
+    `valid` are those of the tracing state now), which loads the state
+    (load(st)) before and, on a capture, again after it. The warm-ups and
+    the capture read the index tables (the state's int64 tensors but its
+    counter) as the state was made, where every row indexes the train and
+    the test data alike; after an epoch a row holds draws for one of
+    them."""
 
     def __init__(self, state, train_step, valid_step, device):
         self.state = state
-        self.train = StepGraph(lambda: train_step(state), device)
-        self.valid = StepGraph(lambda: valid_step(state), device)
+        self.steps = train_step, valid_step
+        self.device = torch.device(device)
+        self.graphs = {}
+        self.tables = [(v, v.clone()) for v in vars(state).values()
+                       if torch.is_tensor(v) and v.dtype == torch.int64
+                       and v is not state.counter]
+
+    def _pair(self):
+        on = tracing.enabled()
+        if on not in self.graphs:
+            train_step, valid_step = self.steps
+            self.graphs[on] = (
+                StepGraph(lambda: train_step(self.state), self.device,
+                          name='fit.train_step'),
+                StepGraph(lambda: valid_step(self.state), self.device,
+                          name='fit.valid_step'))
+        return self.graphs[on]
+
+    @property
+    def train(self):
+        return self._pair()[0]
+
+    @property
+    def valid(self):
+        return self._pair()[1]
 
     @property
     def captured(self):
@@ -266,14 +316,19 @@ class CompiledEpoch:
 
     @property
     def capture_s(self):
-        return self.train.capture_s + self.valid.capture_s
+        return sum(g.capture_s for pair in self.graphs.values()
+                   for g in pair)
 
     def prepare(self, load):
         """load(state), capturing both steps first if they are not yet."""
         load(self.state)
         if self.captured or self.train.device.type != 'cuda':
             return
-        reset = self.state.counter.zero_
+
+        def reset():
+            self.state.counter.zero_()
+            for table, made in self.tables:
+                table.copy_(made)
         self.train.capture(reset)
         self.valid.capture(reset)
         load(self.state)

@@ -39,7 +39,6 @@ scales the dataset's memory, not the step's work.
 """
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.models import captured, core
@@ -51,6 +50,7 @@ from learning_to_adapt_torch.models.optim import (
     tree_unflatten)
 from learning_to_adapt_torch.ops.fused_mlp import PackedMLP, fused_mlp_forward
 from learning_to_adapt_torch.parallel import mesh as par_mesh
+from learning_to_adapt_torch.utils import tracing
 
 PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
 
@@ -193,6 +193,7 @@ class MetaMLPDynamicsModel:
                                       data['delta']], axis=-1)
         return par_mesh.stage_fit_data(self, out)
 
+    @tracing.calls('fit.call')
     def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
             valid_split_ratio=None, rolling_average_persitency=None,
             verbose=False, log_tabular=False, logger=None):
@@ -212,42 +213,44 @@ class MetaMLPDynamicsModel:
 
         if self.normalize_input and (compute_normalization or
                                      self._train is None):
-            self.normalizer = Normalizer.fit(
-                *(torch.as_tensor(a, device=self.device)
-                  for a in (obs, act, delta)))
+            with tracing.span('fit.normalize'):
+                self.normalizer = Normalizer.fit(
+                    *(torch.as_tensor(a, device=self.device)
+                      for a in (obs, act, delta)))
 
-        # split along the path axis, aggregate across iterations
-        n_paths = obs.shape[0]
-        idx = self._rng.permutation(n_paths)
-        split = max(int(n_paths * (1 - valid_split_ratio)), 1)
-        tr, te = idx[:split], idx[split:] if split < n_paths else idx[-1:]
-        new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
-        new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
-        if self._train is None:
-            self._train, self._test = new_tr, new_te
-        else:
-            self._train = {k: np.concatenate([self._train[k], new_tr[k]])
-                           for k in new_tr}
-            self._test = {k: np.concatenate([self._test[k], new_te[k]])
-                          for k in new_te}
+        with tracing.span('fit.stage'):
+            # split along the path axis, aggregate across iterations
+            n_paths = obs.shape[0]
+            idx = self._rng.permutation(n_paths)
+            split = max(int(n_paths * (1 - valid_split_ratio)), 1)
+            tr, te = idx[:split], idx[split:] if split < n_paths else idx[-1:]
+            new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
+            new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
+            if self._train is None:
+                self._train, self._test = new_tr, new_te
+            else:
+                self._train = {k: np.concatenate([self._train[k], new_tr[k]])
+                               for k in new_tr}
+                self._test = {k: np.concatenate([self._test[k], new_te[k]])
+                              for k in new_te}
 
-        p_tr = self._train['obs'].shape[0]
-        p_te = self._test['obs'].shape[0]
-        t_len = self._train['obs'].shape[1]
-        cap_tr, cap_te, steps_per_epoch, steps_test = self._fit_shapes(
-            p_tr, p_te, t_len)
-        par_mesh.stage_model_state(self)
-        train = self.stage(self._train, cap_tr)
-        test = self.stage(self._test, cap_te)
+            p_tr = self._train['obs'].shape[0]
+            p_te = self._test['obs'].shape[0]
+            t_len = self._train['obs'].shape[1]
+            cap_tr, cap_te, steps_per_epoch, steps_test = self._fit_shapes(
+                p_tr, p_te, t_len)
+            par_mesh.stage_model_state(self)
+            train = self.stage(self._train, cap_tr)
+            test = self.stage(self._test, cap_te)
         compiled = None
-        if captured.captures(self.device, self.mesh):
-            compiled = self.compiled_epoch(train, test)
-            compiled.prepare(lambda st: self._load_state(
-                st, self.params, self.opt_state, self.normalizer, train,
-                test))
-
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(int(self._rng.randint(1 << 31)))
+        with tracing.span('fit.prepare'):
+            if captured.captures(self.device, self.mesh):
+                compiled = self.compiled_epoch(train, test)
+                compiled.prepare(lambda st: self._load_state(
+                    st, self.params, self.opt_state, self.normalizer, train,
+                    test))
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(self._rng.randint(1 << 31)))
         valid_avg = valid_avg_prev = None
         epoch = 0
         pre_loss = post_loss = float('nan')
@@ -263,8 +266,9 @@ class MetaMLPDynamicsModel:
                     compiled.state, p_tr, p_te, steps_per_epoch, steps_test,
                     generator, None, compiled.train, compiled.valid)
             # the epoch's one read of device values, alike on every rank
-            post_loss, pre_loss, valid_loss = torch.stack(
-                [post, pre, valid]).tolist()
+            with tracing.span('fit.read'):
+                post_loss, pre_loss, valid_loss = torch.stack(
+                    [post, pre, valid]).tolist()
             if valid_avg is None:
                 valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
                     else valid_loss / 1.5
@@ -280,8 +284,9 @@ class MetaMLPDynamicsModel:
                 break
             valid_avg_prev = valid_avg
         if compiled is not None:
-            self.params, self.opt_state = self._state_out(compiled.state,
-                                                          clone=True)
+            with tracing.span('fit.state_out'):
+                self.params, self.opt_state = self._state_out(
+                    compiled.state, clone=True)
         if log_tabular and logger is not None:
             logger.logkv('Epochs', epoch)
             logger.logkv('Pre-Loss', pre_loss)
@@ -358,22 +363,23 @@ class MetaMLPDynamicsModel:
         return w.split([self.obs_dim, self.act_dim, self.obs_dim], dim=-1)
 
     def _train_step(self, st):
-        """One meta-train step in place: the second-order meta loss on the
-        counter's windows of st.train ('fit.meta_loss'), its gradient
-        ('fit.meta_grad'), clip and Adam ('fit.adam'); adds post and pre
-        to the sums and advances the counter."""
-        o, a, d = self._window(st, st.train)
-        with torch.enable_grad():
-            with record_function('fit.meta_loss'):
+        """One meta-train step in place: the counter's windows of st.train
+        and the second-order meta loss on them (span 'fit.loss'), its
+        gradient ('fit.grad'), clip and Adam, then post and pre added to
+        the sums and the counter advanced ('fit.optim': the step's last
+        span, so that its close and the step's end share one stamp)."""
+        with tracing.span('fit.loss'):
+            o, a, d = self._window(st, st.train)
+            with torch.enable_grad():
                 post, pre = self.meta_loss_fn(
                     self._from_step_layout(st.leaves), st.norm, o, a, d)
-            with record_function('fit.meta_grad'):
-                grads = torch.autograd.grad(post, st.leaves)
-        with record_function('fit.adam'):
+        with tracing.span('fit.grad'), torch.enable_grad():
+            grads = torch.autograd.grad(post, st.leaves)
+        with tracing.span('fit.optim'):
             self.optimizer.step_(st.leaves, list(grads), st.count, st.mu,
                                  st.nu)
-        st.sums[:2].add_(torch.stack([post, pre]).detach())
-        st.counter.add_(1)
+            st.sums[:2].add_(torch.stack([post, pre]).detach())
+            st.counter.add_(1)
 
     def _valid_step(self, st):
         """One validation step: the plain pre-update loss of the params on
@@ -395,31 +401,37 @@ class MetaMLPDynamicsModel:
         tensors, means over the steps; with a mesh, one all_reduce takes
         their max over the ranks, which hold the same values, so every
         rank takes the same early stop."""
-        if windows is None:
-            mbs, bs = self.meta_batch_size, self.batch_size
-            dev, t_len = st.train.device, st.train.shape[1]
-
-            def draw(n, count):
-                pidx = torch.randint(0, n, (count, mbs), generator=generator,
-                                     device=dev)
-                # paths of exactly 2*bs steps have one offset, bs, which
-                # jax.random.randint gives when its bounds meet
-                offs = torch.randint(bs, max(t_len - bs, bs + 1),
-                                     (count, mbs), generator=generator,
-                                     device=dev)
-                return pidx, offs
-            (p_tr, o_tr), (p_te, o_te) = draw(n_tr, steps), draw(n_te,
-                                                                 steps_test)
-            pidx, offs = torch.cat([p_tr, p_te]), torch.cat([o_tr, o_te])
-        else:
-            pidx, offs = (torch.stack([w[k] for w in windows]).to(
-                st.pidx.device) for k in (0, 1))
-        captured.set_table(st.pidx, pidx)
-        captured.set_table(st.offs, offs)
+        with tracing.span('fit.draws'):
+            if windows is None:
+                pidx, offs = self._draw_windows(st, n_tr, n_te, steps,
+                                                steps_test, generator)
+            else:
+                pidx, offs = (torch.stack([w[k] for w in windows]).to(
+                    st.pidx.device) for k in (0, 1))
+            captured.set_table(st.pidx, pidx)
+            captured.set_table(st.offs, offs)
         captured.run_epoch(st, steps, steps_test, train_step, valid_step)
         losses = torch.stack([st.sums[0] / steps, st.sums[1] / steps,
                               st.sums[2] / steps_test])
         return par_mesh.all_reduce(self.mesh, losses, op='max')
+
+    def _draw_windows(self, st, n_tr, n_te, steps, steps_test, generator):
+        """(path index, offset) of every train step, then of every
+        validation step: path index in [0, n_tr) or [0, n_te), offset in
+        [bs, T - bs)."""
+        mbs, bs = self.meta_batch_size, self.batch_size
+        dev, t_len = st.train.device, st.train.shape[1]
+
+        def draw(n, count):
+            pidx = torch.randint(0, n, (count, mbs), generator=generator,
+                                 device=dev)
+            # paths of exactly 2*bs steps have one offset, bs, which
+            # jax.random.randint gives when its bounds meet
+            offs = torch.randint(bs, max(t_len - bs, bs + 1), (count, mbs),
+                                 generator=generator, device=dev)
+            return pidx, offs
+        (p_tr, o_tr), (p_te, o_te) = draw(n_tr, steps), draw(n_te, steps_test)
+        return torch.cat([p_tr, p_te]), torch.cat([o_tr, o_te])
 
     @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_tr, n_te,
@@ -434,8 +446,8 @@ class MetaMLPDynamicsModel:
         pre, valid): the losses are 0-d device tensors, means over the
         epoch's steps. Nothing here waits for the device. The steps are
         the compiled epoch's (`_train_step`, `_valid_step`) on a state
-        made for this epoch, labelled 'fit.train_step' and
-        'fit.valid_step' for torch.profiler. With a mesh, one all_reduce a
+        made for this epoch, the spans 'fit.train_step' and
+        'fit.valid_step'. With a mesh, one all_reduce a
         step assembles its windows and one more, at the end, takes the
         losses' max over the ranks."""
         st = self._fit_state(params, opt_state, norm, train, test,

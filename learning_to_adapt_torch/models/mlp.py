@@ -59,6 +59,7 @@ from learning_to_adapt_torch.models.optim import (
 from learning_to_adapt_torch.ops.fused_mlp import (
     PackedMLP, fused_mlp_forward, pack_weights)
 from learning_to_adapt_torch.parallel import mesh as par_mesh
+from learning_to_adapt_torch.utils import tracing
 
 PAD_CHUNK = 16384  # staged dataset capacity grows in row chunks
 
@@ -121,6 +122,7 @@ class MLPDynamicsModel:
         self._epoch_cache = {}  # shape key -> captured.CompiledEpoch
 
     # ------------------------------------------------------------------ fit
+    @tracing.calls('fit.call')
     def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
             valid_split_ratio=None, rolling_average_persitency=None,
             verbose=False, log_tabular=False, logger=None):
@@ -141,37 +143,40 @@ class MLPDynamicsModel:
         # normalization stats from this iteration's fresh data
         if self.normalize_input and (compute_normalization or
                                      self._train is None):
-            self.normalizer = Normalizer.fit(
-                *(torch.as_tensor(a, device=self.device)
-                  for a in (obs, act, delta)))
+            with tracing.span('fit.normalize'):
+                self.normalizer = Normalizer.fit(
+                    *(torch.as_tensor(a, device=self.device)
+                      for a in (obs, act, delta)))
 
-        # random train/valid split, then append to the aggregated datasets
-        n = obs.shape[0]
-        idx = self._rng.permutation(n)
-        split = int(n * (1 - valid_split_ratio))
-        tr, te = idx[:split], idx[split:]
-        new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
-        new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
-        if self._train is None:
-            self._train, self._test = new_tr, new_te
-        else:
-            self._train = {k: np.concatenate([self._train[k], new_tr[k]])
-                           for k in new_tr}
-            self._test = {k: np.concatenate([self._test[k], new_te[k]])
-                          for k in new_te}
+        with tracing.span('fit.stage'):
+            # random train/valid split, then append to the aggregated datasets
+            n = obs.shape[0]
+            idx = self._rng.permutation(n)
+            split = int(n * (1 - valid_split_ratio))
+            tr, te = idx[:split], idx[split:]
+            new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
+            new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
+            if self._train is None:
+                self._train, self._test = new_tr, new_te
+            else:
+                self._train = {k: np.concatenate([self._train[k], new_tr[k]])
+                               for k in new_tr}
+                self._test = {k: np.concatenate([self._test[k], new_te[k]])
+                              for k in new_te}
 
-        par_mesh.stage_model_state(self)
-        train, test = self.stage(self._train), self.stage(self._test)
-        n_train = self._train['obs'].shape[0]
-        n_batches = _bucket_pow2(max(n_train // self.batch_size, 1))
+            par_mesh.stage_model_state(self)
+            train, test = self.stage(self._train), self.stage(self._test)
+            n_train = self._train['obs'].shape[0]
+            n_batches = _bucket_pow2(max(n_train // self.batch_size, 1))
         compiled = None
-        if captured.captures(self.device, self.mesh):
-            compiled = self.compiled_epoch(train, test)
-            compiled.prepare(lambda st: self._load_state(
-                st, self.params, self.opt_state, self.normalizer, train,
-                test))
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(int(self._rng.randint(1 << 31)))
+        with tracing.span('fit.prepare'):
+            if captured.captures(self.device, self.mesh):
+                compiled = self.compiled_epoch(train, test)
+                compiled.prepare(lambda st: self._load_state(
+                    st, self.params, self.opt_state, self.normalizer, train,
+                    test))
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(self._rng.randint(1 << 31)))
 
         valid_avg = valid_avg_prev = None
         epoch = 0
@@ -187,7 +192,9 @@ class MLPDynamicsModel:
                     compiled.state, n_batches, generator, None,
                     compiled.train, compiled.valid)
             # the epoch's one read of device values, alike on every rank
-            train_loss, valid_loss = torch.stack([train_t, valid_t]).tolist()
+            with tracing.span('fit.read'):
+                train_loss, valid_loss = torch.stack(
+                    [train_t, valid_t]).tolist()
             if valid_avg is None:
                 # seeded above the first value so that epoch 0 never stops
                 valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
@@ -203,8 +210,9 @@ class MLPDynamicsModel:
                 break
             valid_avg_prev = valid_avg
         if compiled is not None:
-            self.params, self.opt_state = self._state_out(compiled.state,
-                                                          clone=True)
+            with tracing.span('fit.state_out'):
+                self.params, self.opt_state = self._state_out(
+                    compiled.state, clone=True)
         if log_tabular and logger is not None:
             logger.logkv('Epochs', epoch)
             logger.logkv('TrainLoss', train_loss)
@@ -296,24 +304,30 @@ class MLPDynamicsModel:
     def _train_step(self, st):
         """One train step in place: the minibatch at the step counter's row
         of the index table (with a mesh, assembled by one all_reduce), the
-        loss of this rank's share of it and its gradient, one all_reduce
-        summing gradients and loss over the ranks, clip and Adam; adds the
-        loss to the sums and advances the counter."""
+        loss of this rank's share of it (span 'fit.loss') and its gradient,
+        one all_reduce summing gradients and loss over the ranks ('fit.grad'),
+        clip and Adam, then the loss added to the sums and the counter
+        advanced ('fit.optim', the step's last span)."""
         mesh = self.mesh
         rows, w = st.train
-        mb_rows, mb_w = par_mesh.take_rows(
-            mesh, (rows, w), st.sel.index_select(0, st.counter)[0])
-        share = par_mesh.batch_share(mesh, self.batch_size)
-        with torch.enable_grad():
-            num, _ = self.loss_terms(self._from_step_layout(st.leaves),
-                                     st.norm, mb_rows[share], mb_w[share])
-            loss = num / torch.clamp(mb_w.sum(), min=1.0)
-            grads = torch.autograd.grad(loss, st.leaves)
-        *grads, loss = par_mesh.all_reduce_flat(
-            mesh, list(grads) + [loss.detach()])
-        self.optimizer.step_(st.leaves, grads, st.count, st.mu, st.nu)
-        st.sums[0].add_(loss)
-        st.counter.add_(1)
+        with tracing.span('fit.loss'):
+            mb_rows, mb_w = par_mesh.take_rows(
+                mesh, (rows, w), st.sel.index_select(0, st.counter)[0])
+            share = par_mesh.batch_share(mesh, self.batch_size)
+            with torch.enable_grad():
+                num, _ = self.loss_terms(self._from_step_layout(st.leaves),
+                                         st.norm, mb_rows[share],
+                                         mb_w[share])
+                loss = num / torch.clamp(mb_w.sum(), min=1.0)
+        with tracing.span('fit.grad'):
+            with torch.enable_grad():
+                grads = torch.autograd.grad(loss, st.leaves)
+            *grads, loss = par_mesh.all_reduce_flat(
+                mesh, list(grads) + [loss.detach()])
+        with tracing.span('fit.optim'):
+            self.optimizer.step_(st.leaves, grads, st.count, st.mu, st.nu)
+            st.sums[0].add_(loss)
+            st.counter.add_(1)
 
     def _valid_step(self, st):
         """The loss on the whole padded test set (with a mesh, its terms
@@ -329,15 +343,16 @@ class MLPDynamicsModel:
         the device; with a mesh, of the global capacity) into the index
         table, each a train step; then the validation step. Returns (mean
         train loss, valid loss), 0-d device tensors."""
-        if perm is None:
-            rows = st.train[0]
-            cap = rows.shape[0] * (1 if self.mesh is None
-                                   else self.mesh.shape['env'])
-            perm = torch.randperm(cap, generator=generator,
-                                  device=rows.device)
-        bs = self.batch_size
-        captured.set_table(st.sel, perm[:n_batches * bs].reshape(n_batches,
-                                                                 bs))
+        with tracing.span('fit.draws'):
+            if perm is None:
+                rows = st.train[0]
+                cap = rows.shape[0] * (1 if self.mesh is None
+                                       else self.mesh.shape['env'])
+                perm = torch.randperm(cap, generator=generator,
+                                      device=rows.device)
+            bs = self.batch_size
+            captured.set_table(st.sel, perm[:n_batches * bs].reshape(
+                n_batches, bs))
         captured.run_epoch(st, n_batches, 1, train_step, valid_step)
         return st.sums[0] / n_batches, st.sums[1].clone()
 
@@ -353,8 +368,7 @@ class MLPDynamicsModel:
         opt_state, mean train loss, valid loss), the losses 0-d device
         tensors; nothing here waits for the device. The steps are the
         compiled epoch's (`_train_step`, `_valid_step`) on a state made
-        for this epoch, labelled 'fit.train_step' and 'fit.valid_step' for
-        torch.profiler."""
+        for this epoch, the spans 'fit.train_step' and 'fit.valid_step'."""
         st = self._fit_state(params, opt_state, norm, train, test,
                              n_batches)
         losses = self._epoch(st, n_batches, generator, perm,

@@ -61,6 +61,7 @@ from learning_to_adapt_torch.models.optim import (
     state_from_jax_numpy, tree_from_numpy, tree_leaves, tree_map,
     tree_to_numpy, tree_unflatten)
 from learning_to_adapt_torch.parallel import mesh as par_mesh
+from learning_to_adapt_torch.utils import tracing
 
 PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
 
@@ -187,6 +188,7 @@ class RNNDynamicsModel:
         return out.cpu().numpy(), hidden
 
     # ------------------------------------------------------------------ fit
+    @tracing.calls('fit.call')
     def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
             valid_split_ratio=None, rolling_average_persitency=None,
             verbose=False, log_tabular=False, logger=None):
@@ -203,37 +205,40 @@ class RNNDynamicsModel:
 
         if self.normalize_input and (compute_normalization or
                                      self._train is None):
-            self.normalizer = Normalizer.fit(
-                *(torch.as_tensor(a, device=self.device)
-                  for a in (obs, act, delta)))
+            with tracing.span('fit.normalize'):
+                self.normalizer = Normalizer.fit(
+                    *(torch.as_tensor(a, device=self.device)
+                      for a in (obs, act, delta)))
 
-        n_paths = obs.shape[0]
-        idx = self._rng.permutation(n_paths)
-        split = max(int(n_paths * (1 - valid_split_ratio)), 1)
-        tr, te = idx[:split], idx[split:] if split < n_paths else idx[-1:]
-        new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
-        new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
-        if self._train is None:
-            self._train, self._test = new_tr, new_te
-        else:
-            self._train = {k: np.concatenate([self._train[k], new_tr[k]])
-                           for k in new_tr}
-            self._test = {k: np.concatenate([self._test[k], new_te[k]])
-                          for k in new_te}
+        with tracing.span('fit.stage'):
+            n_paths = obs.shape[0]
+            idx = self._rng.permutation(n_paths)
+            split = max(int(n_paths * (1 - valid_split_ratio)), 1)
+            tr, te = idx[:split], idx[split:] if split < n_paths else idx[-1:]
+            new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
+            new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
+            if self._train is None:
+                self._train, self._test = new_tr, new_te
+            else:
+                self._train = {k: np.concatenate([self._train[k], new_tr[k]])
+                               for k in new_tr}
+                self._test = {k: np.concatenate([self._test[k], new_te[k]])
+                              for k in new_te}
 
-        p_tr = self._train['obs'].shape[0]
-        par_mesh.stage_model_state(self)
-        train, _ = self.stage(self._train)
-        test = self.stage(self._test)
-        n_batches = _bucket_pow2(max(p_tr // self.batch_size, 1))
+            p_tr = self._train['obs'].shape[0]
+            par_mesh.stage_model_state(self)
+            train, _ = self.stage(self._train)
+            test = self.stage(self._test)
+            n_batches = _bucket_pow2(max(p_tr // self.batch_size, 1))
         compiled = None
-        if captured.captures(self.device, self.mesh):
-            compiled = self.compiled_epoch(train, test)
-            compiled.prepare(lambda st: self._load_state(
-                st, self.params, self.opt_state, self.normalizer, train,
-                test))
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(int(self._rng.randint(1 << 31)))
+        with tracing.span('fit.prepare'):
+            if captured.captures(self.device, self.mesh):
+                compiled = self.compiled_epoch(train, test)
+                compiled.prepare(lambda st: self._load_state(
+                    st, self.params, self.opt_state, self.normalizer, train,
+                    test))
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(self._rng.randint(1 << 31)))
 
         valid_avg = valid_avg_prev = None
         epoch = 0
@@ -249,7 +254,9 @@ class RNNDynamicsModel:
                     compiled.state, p_tr, n_batches, generator, None,
                     compiled.train, compiled.valid)
             # the epoch's one read of device values, alike on every rank
-            train_loss, valid_loss = torch.stack([train_t, valid_t]).tolist()
+            with tracing.span('fit.read'):
+                train_loss, valid_loss = torch.stack(
+                    [train_t, valid_t]).tolist()
             if valid_avg is None:
                 valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
                     else valid_loss / 1.5
@@ -264,8 +271,9 @@ class RNNDynamicsModel:
                 break
             valid_avg_prev = valid_avg
         if compiled is not None:
-            self.params, self.opt_state = self._state_out(compiled.state,
-                                                          clone=True)
+            with tracing.span('fit.state_out'):
+                self.params, self.opt_state = self._state_out(
+                    compiled.state, clone=True)
         if log_tabular and logger is not None:
             logger.logkv('Epochs', epoch)
             logger.logkv('TrainLoss', train_loss)
@@ -414,23 +422,28 @@ class RNNDynamicsModel:
         """One train step in place: the batch_size paths at the step
         counter's row of the index table (with a mesh, assembled by one
         all_reduce), the TBPTT loss of this rank's share of them, scaled by
-        that share, and its gradient, one all_reduce summing gradients and
-        loss over the ranks, clip and Adam; adds the loss to the sums and
-        advances the counter."""
+        that share (span 'fit.loss'), and its gradient, one all_reduce
+        summing gradients and loss over the ranks ('fit.grad'), clip and
+        Adam, then the loss added to the sums and the counter advanced
+        ('fit.optim', the step's last span)."""
         mesh, bs = self.mesh, self.batch_size
-        share = par_mesh.batch_share(mesh, bs)
-        paths, = par_mesh.take_rows(mesh, (st.train,),
-                                    st.path_idx.index_select(0, st.counter)[0])
-        with torch.enable_grad():
-            loss = self.tbptt_loss(st.layers, st.out, st.norm,
-                                   *self._split(paths[share])) * (
-                                       (share.stop - share.start) / bs)
-            grads = torch.autograd.grad(loss, st.leaves)
-        *grads, loss = par_mesh.all_reduce_flat(
-            mesh, list(grads) + [loss.detach()])
-        self.optimizer.step_(st.leaves, grads, st.count, st.mu, st.nu)
-        st.sums[0].add_(loss)
-        st.counter.add_(1)
+        with tracing.span('fit.loss'):
+            share = par_mesh.batch_share(mesh, bs)
+            paths, = par_mesh.take_rows(
+                mesh, (st.train,), st.path_idx.index_select(0, st.counter)[0])
+            with torch.enable_grad():
+                loss = self.tbptt_loss(st.layers, st.out, st.norm,
+                                       *self._split(paths[share])) * (
+                                           (share.stop - share.start) / bs)
+        with tracing.span('fit.grad'):
+            with torch.enable_grad():
+                grads = torch.autograd.grad(loss, st.leaves)
+            *grads, loss = par_mesh.all_reduce_flat(
+                mesh, list(grads) + [loss.detach()])
+        with tracing.span('fit.optim'):
+            self.optimizer.step_(st.leaves, grads, st.count, st.mu, st.nu)
+            st.sums[0].add_(loss)
+            st.counter.add_(1)
 
     def _valid_step(self, st):
         """The masked loss over the padded test paths (with a mesh, its
@@ -445,13 +458,14 @@ class RNNDynamicsModel:
         replacement from the first n_tr (or path_idx[i]) into the index
         table; then the validation step. Returns (mean train loss, valid
         loss), 0-d device tensors."""
-        if path_idx is None:
-            path_idx = torch.randint(0, n_tr, (n_batches, self.batch_size),
-                                     generator=generator,
-                                     device=st.train.device)
-        else:
-            path_idx = torch.stack(list(path_idx)).to(st.path_idx.device)
-        captured.set_table(st.path_idx, path_idx)
+        with tracing.span('fit.draws'):
+            if path_idx is None:
+                path_idx = torch.randint(
+                    0, n_tr, (n_batches, self.batch_size),
+                    generator=generator, device=st.train.device)
+            else:
+                path_idx = torch.stack(list(path_idx)).to(st.path_idx.device)
+            captured.set_table(st.path_idx, path_idx)
         captured.run_epoch(st, n_batches, 1, train_step, valid_step)
         return st.sums[0] / n_batches, st.sums[1].clone()
 
@@ -467,8 +481,7 @@ class RNNDynamicsModel:
         train loss, valid loss), the losses 0-d device tensors; nothing
         here waits for the device. The steps are the compiled epoch's
         (`_train_step`, `_valid_step`) on a state made for this epoch,
-        labelled 'fit.train_step' and 'fit.valid_step' for
-        torch.profiler."""
+        the spans 'fit.train_step' and 'fit.valid_step'."""
         st = self._fit_state(params, opt_state, norm, train, test,
                              n_batches)
         losses = self._epoch(st, n_tr, n_batches, generator, path_idx,

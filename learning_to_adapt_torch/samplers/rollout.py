@@ -41,17 +41,19 @@ made for all m envs from the sampler's generator, seeded alike on every
 rank, in the order a 1-rank run makes it; each rank keeps its rows, so the
 W-rank paths are the 1-rank paths.
 
-Each eager step's parts are labelled for torch.profiler: 'rollout.plan'
-(with 'rollout.adapt' inside it once adaptation is on, and
-'rollout.pack') and 'rollout.env_step'; MB-MPC's one pack per call is
-labelled 'rollout.pack'. A captured step's labels fire at its capture
-only: each replay is labelled 'rollout.step'.
+A step's parts are spans (utils/tracing.py): 'rollout.plan' (with
+'rollout.adapt' inside it once adaptation is on, and 'rollout.pack') and
+'rollout.env_step' (the action noise and the physics). Eagerly they are
+timed by the host; in a CompiledRollout captured with tracing on they are
+the step graph's device stamps, which fire at every replay, and the host
+span 'rollout.step' is around each replay. A call's other phases are
+'rollout.reset' and 'rollout.prepare' (MB-MPC's one pack per call,
+'rollout.pack', inside it).
 """
 import dataclasses
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from learning_to_adapt_torch.envs.base import (
     load_state, state_rows, static_state)
@@ -62,6 +64,7 @@ from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
 from learning_to_adapt_torch.models.rnn import RNNDynamicsModel
 from learning_to_adapt_torch.ops.fused_mlp import pack_weights
 from learning_to_adapt_torch.parallel import mesh as par_mesh
+from learning_to_adapt_torch.utils import tracing
 
 
 def _segment_len(t_len, target=125):
@@ -163,13 +166,13 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
             # per-env fast adaptation on the trailing window: the last a_bs
             # transitions are (h_obs[:-1], h_act, h_obs[1:])
             h_obs, h_act = hist
-            with record_function('rollout.adapt'):
+            with tracing.span('rollout.adapt'):
                 merged = dynamics_model.adapt_fn(
                     params, norm, h_obs[:, :-1], h_act, h_obs[:, 1:])
         else:
             # before the gate every env plans with the pre-update params
             merged = dynamics_model.broadcast_params(params, m)
-        with record_function('rollout.pack'):
+        with tracing.span('rollout.pack'):
             packed = pack_weights(merged['w'], merged['b'])
 
         def predict(o_rows, a_rows):
@@ -200,7 +203,7 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
         states, aux = carry
         obs_before = states.obs
         like = dict(dtype=obs_before.dtype, device=obs_before.device)
-        with record_function('rollout.plan'):
+        with tracing.span('rollout.plan'):
             if random:
                 u = torch.rand((n_all, act_dim), generator=generator,
                                **like)[rows]
@@ -215,11 +218,11 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
                 else:
                     actions = plan_actions(params, norm, obs_before, aux, t,
                                            generator, candidates, normals)
-        noise = None
-        if base_env.action_noise > 0:
-            noise = torch.randn((n_all, act_dim), generator=generator,
-                                **like)[rows]
-        with record_function('rollout.env_step'):
+        with tracing.span('rollout.env_step'):
+            noise = None
+            if base_env.action_noise > 0:
+                noise = torch.randn((n_all, act_dim), generator=generator,
+                                    **like)[rows]
             states, obs_after, rewards, dones, _ = env.step(states, actions,
                                                             noise)
         if a_bs:
@@ -246,9 +249,10 @@ def make_rollout_fn(env, policy, dynamics_model, num_rollouts,
     def rollout(params, norm, generator, episode_idx):
         if is_mlp and not random:
             # one weight stream for every prediction of the call
-            with record_function('rollout.pack'):
+            with tracing.span('rollout.pack'):
                 params = dynamics_model.pack(params)
-        carry = init_carry(generator, episode_idx)
+        with tracing.span('rollout.reset'):
+            carry = init_carry(generator, episode_idx)
         chunks = []
         for s in range(n_segments):
             carry, outs = segment(params, norm, carry, s * seg, generator)
@@ -277,8 +281,10 @@ class CompiledRollout:
     graph (models/captured.py StepGraph) for each side of the host
     branches (`branch`: GrBAL before and after its adaptation gate, ReBAL's
     frozen ablation before and after its warm-up; one graph otherwise) and
-    replayed for every step of every call. On a CPU device (the tests) the
-    step runs as a plain call.
+    replayed for every step of every call. The graphs are kept by the
+    tracing state at their capture (`by_tracing`: tracing on -> {branch key:
+    StepGraph}; `graphs` is the dict of the tracing state now). On a CPU
+    device (the tests) the step runs as a plain call.
 
     The static carry holds the env states (`static_state`), the GrBAL
     window or the recurrent hidden state, the params and normalizer the
@@ -305,7 +311,7 @@ class CompiledRollout:
         self.generator = torch.Generator(device=self.device)
         self.pool = (torch.cuda.graph_pool_handle()
                      if self.device.type == 'cuda' else None)
-        self.graphs = {}            # branch key -> StepGraph
+        self.by_tracing = {}
         self.states = self.aux = self.params = self.norm = None
         self.step_params = self.paths = self.counter = None
 
@@ -341,7 +347,7 @@ class CompiledRollout:
         if self.pack is None:
             self.step_params = self.params
         else:
-            with record_function('rollout.pack'):
+            with tracing.span('rollout.pack'):
                 self.step_params = self.pack(self.params,
                                              out=self.step_params)
         self.load_carry(carry)
@@ -366,35 +372,45 @@ class CompiledRollout:
         for d, s in zip(_leaves(self.aux), _leaves(aux), strict=True):
             d.copy_(s)
 
+    @property
+    def graphs(self):
+        return self.by_tracing.setdefault(tracing.enabled(), {})
+
     @torch.no_grad()
     def __call__(self, params, norm, generator, episode_idx):
         gen = self.generator
         gen.set_state(generator.get_state())
-        carry = self.init_carry(gen, episode_idx)
-        self.prepare(params, norm, carry)
+        with tracing.span('rollout.reset'):
+            carry = self.init_carry(gen, episode_idx)
+        with tracing.span('rollout.prepare'):
+            self.prepare(params, norm, carry)
+        graphs = self.graphs
         first = {}
         for t in range(self.t_len):
             first.setdefault(self.branch(t), t)
-        missing = [(k, t) for k, t in first.items() if k not in self.graphs]
+        missing = [(k, t) for k, t in first.items() if k not in graphs]
         for key, t in missing:
             graph = captured.StepGraph(functools.partial(self.step, t),
-                                       self.device, gen, self.pool)
+                                       self.device, gen, self.pool,
+                                       name='rollout.step')
             if self.device.type == 'cuda':
                 graph.capture(lambda: self.load_carry(carry))
-            self.graphs[key] = graph
+            graphs[key] = graph
         if missing:
             self.load_carry(carry)
         for t in range(self.t_len):
-            with record_function('rollout.step'):
-                self.graphs[self.branch(t)]()
+            with tracing.span('rollout.step'):
+                graphs[self.branch(t)]()
         generator.set_state(gen.get_state())
         return {k: v.clone() for k, v in self.paths.items()}
 
     @property
     def capture_s(self):
         """Seconds of every capture so far, warm-ups included."""
-        return sum(g.capture_s for g in self.graphs.values())
+        return sum(g.capture_s for graphs in self.by_tracing.values()
+                   for g in graphs.values())
 
     @property
     def replays(self):
-        return sum(g.replays for g in self.graphs.values())
+        return sum(g.replays for graphs in self.by_tracing.values()
+                   for g in graphs.values())

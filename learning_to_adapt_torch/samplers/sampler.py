@@ -22,7 +22,7 @@ import torch
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.parallel import mesh as par_mesh
 from learning_to_adapt_torch.samplers.rollout import make_rollout_fn
-from learning_to_adapt_torch.utils import logging as logger
+from learning_to_adapt_torch.utils import logging as logger, tracing
 
 
 class Sampler:
@@ -69,16 +69,19 @@ class Sampler:
                 for k, fn in self._fns.items()}
 
     def obtain_samples(self, log=False, log_prefix='', random=False):
-        """Returns a dict of numpy arrays [num_rollouts, T, ...]."""
-        t0 = time.time()
-        model = self.policy.dynamics_model
-        fn = self._rollout_fn(random)
-        paths = fn(model.params, model.normalizer, self._generator,
-                   self._episode_idx)
-        # one device-to-host copy per call, after the whole rollout (with
-        # a mesh, of every rank's paths after one all_gather)
-        paths = par_mesh.gather(self.mesh, paths)
-        self.last_seconds = time.time() - t0
+        """Returns a dict of numpy arrays [num_rollouts, T, ...]. The call
+        is the span 'rollout.call' (utils/tracing.py)."""
+        with tracing.call('rollout.call'):
+            t0 = time.time()
+            model = self.policy.dynamics_model
+            fn = self._rollout_fn(random)
+            paths = fn(model.params, model.normalizer, self._generator,
+                       self._episode_idx)
+            # one device-to-host copy per call, after the whole rollout
+            # (with a mesh, of every rank's paths after one all_gather)
+            with tracing.span('rollout.gather'):
+                paths = par_mesh.gather(self.mesh, paths)
+            self.last_seconds = time.time() - t0
         self._episode_idx += 1
         self.total_timesteps_sampled += self.total_samples
         if log:

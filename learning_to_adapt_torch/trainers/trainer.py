@@ -13,7 +13,7 @@ import time
 
 import torch
 
-from learning_to_adapt_torch.utils import logging as logger
+from learning_to_adapt_torch.utils import logging as logger, tracing
 
 
 class Trainer:
@@ -109,9 +109,13 @@ class Trainer:
     def record_iteration(self, itr):
         """Appends one JSON line to iterations.jsonl in the log directory
         (none where the logger writes nothing): the fit's captured shape
-        keys, the sampler's captured step graphs and, on the card, the
-        allocated, peak and reserved bytes. A --resume appends to it, and
-        its process captures anew."""
+        keys, the sampler's captured step graphs, on the card the
+        allocated, peak and reserved bytes and, with tracing on (--spans),
+        the iteration's span totals (utils/tracing.py totals(); the records
+        are cleared after) and the process's counters so far (the graphs
+        captured, `graph.captures`, and their seconds: a count that rises
+        after the first iterations is a step captured again). A --resume
+        appends to it, and its process captures anew."""
         log_dir = logger.get_dir()
         if log_dir is None:
             return
@@ -124,6 +128,10 @@ class Trainer:
             rec.update(mem_allocated=torch.cuda.memory_allocated(model.device),
                        mem_peak=torch.cuda.max_memory_allocated(model.device),
                        mem_reserved=torch.cuda.memory_reserved(model.device))
+        if tracing.enabled():
+            rec['spans'] = tracing.totals()
+            rec['counters'] = tracing.counters()
+            tracing.reset()
         with open(os.path.join(log_dir, 'iterations.jsonl'), 'a') as f:
             f.write(json.dumps(rec) + '\n')
 
