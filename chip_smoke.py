@@ -3,11 +3,11 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (exit code != 0) on failure:
-  1. print the card (nvidia-smi name, power limit); build both CUDA kernels
-     from learning_to_adapt_torch/csrc with nvcc for sm_90a, and the floor
-     variants of the Jacobi kernels' sweep chains (jacobi_study.py: the
-     tiers' handshake only, the cluster kernel's two paths without row
-     products), in parallel;
+  1. print the card (nvidia-smi name, power limit); build the three CUDA
+     kernels from learning_to_adapt_torch/csrc with nvcc for sm_90a, and
+     the floor variants of the Jacobi kernels' sweep chains
+     (jacobi_study.py: the tiers' handshake only, the cluster kernel's two
+     paths without row products), in parallel;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes, with the tolerance printed, and time kernel, plain
      version and (for the MLP) one library call with CUDA events, the host
@@ -17,7 +17,12 @@ Phases, each of which raises (exit code != 0) on failure:
      torch.profiler window. The Jacobi kernel is held on real HalfCheetah
      contact systems and on random SPD systems for 5 and 512 envs; its
      launch tier is printed, and its device time is set beside the floor
-     of its sweep chain (the handshake-only variant on the same inputs);
+     of its sweep chain (the handshake-only variant on the same inputs).
+     The clip-and-Adam kernel is held bit for bit against its plain chain
+     at both models' leaf shapes (MB-MPC's and GrBAL's MLPs) over four
+     unclipped steps, and timed eagerly and as a replayed CUDA graph (as
+     the fits run it) beside the chain timed the same two ways. Every fit
+     on the card must launch it twice a train step (counted_calls);
   3. drive the main path: GrBAL adaptive-MPC sampling on HalfCheetah
      (cripple task) at the full width of run_scripts/run_grbal.py — 5 envs,
      500 candidates x horizon 10, a (512,512,512) ReLU meta-MLP, adaptation
@@ -53,8 +58,8 @@ Phases, each of which raises (exit code != 0) on failure:
      losses and returns, params.pkl must load and re-create its env, the
      resumed run must start at itr 3, and the launch counters (set to 0
      before each run) must show, per iteration, 10 fused-MLP launches and
-     1 pack per policy env step, 1 Jacobi launch per physics step, and no
-     launch of either kernel from the fit;
+     1 pack per policy env step, 1 Jacobi launch per physics step, and
+     from the fit only the clip-and-Adam kernel's two a train replay;
   7. time the meta fit at full width on a dataset of the size the
      canonical run holds by iteration 16 (64 train paths x 1000 steps: 256
      meta-train steps an epoch; 16 valid paths: 64 steps), drawn from a
@@ -70,10 +75,10 @@ Phases, each of which raises (exit code != 0) on failure:
      to 3, checked as in phase 6 against results/mb_mpc_halfcheetah_tpu_r3.csv;
      per policy iteration 20 fused-MLP launches a step over 20,000 rows
      (2000), one weight pack for the whole call, 1 Jacobi launch per
-     physics step, none from the fit; then policy sampling calls as in
-     phases 4 and 5: eager against captured at 100 steps (e c c e), one
-     eager and one captured call of 30 steps profiled, one captured call
-     watched for host waits. The
+     physics step, from the fit only clip and Adam's; then policy
+     sampling calls as in phases 4 and 5: eager against captured at 100
+     steps (e c c e), one eager and one captured call of 30 steps
+     profiled, one captured call watched for host waits. The
      kernel phase also holds and times the MLP kernel at this shape (1 x
      20,000 rows, 26->512->512->20, beside a bf16 addmm chain);
   9. ReBAL: run_rebal.run_experiment (5 envs, 500 candidates x horizon 10,
@@ -109,7 +114,8 @@ Phases, each of which raises (exit code != 0) on failure:
      100 steps, 2 iterations (one random, one policy), in a temporary
      directory: per policy iteration 1000 fused-MLP launches, 100 packs
      and 1 Jacobi launch per physics step (the cluster kernel for the
-     blocks env, the tiers for the others), none from the fits; finite
+     blocks env, the tiers for the others), from the fits only clip and
+     Adam's; finite
      losses and returns, progress.csv's header letter for letter that of
      results/grbal_cheetah_hfield_tpu_r3.csv, grbal_blocks_tpu_r5.csv and
      grbal_arm7dof_force_tpu_r4.csv, params.pkl re-creating its env, every
@@ -435,7 +441,7 @@ def bound_ms(n_bytes, flops, peak_flops):
 
 
 def build_kernels():
-    """Build both kernel sources and the Jacobi kernels' floor variants
+    """Build the kernel sources and the Jacobi kernels' floor variants
     (one nvcc each, all at once); returns the variants' libraries (tiers,
     the cluster kernel's one-block path, its dense path)."""
     import jacobi_study
@@ -445,7 +451,8 @@ def build_kernels():
         floors = [pool.submit(jacobi_study.compile_variant, name) for name
                   in (jacobi_study.FLOOR, jacobi_study.SMALL_FLOOR,
                       jacobi_study.DENSE_FLOOR)]
-        paths = list(pool.map(build.build, ['fused_mlp', 'jacobi']))
+        paths = list(pool.map(build.build,
+                              ['fused_mlp', 'jacobi', 'clip_adam']))
         floors = [f.result() for f in floors]
     log(f'built {[p.name for p in paths + [f[1] for f in floors]]} in '
         f'{time.time() - t0:.1f} s (parallel nvcc, -gencode '
@@ -613,6 +620,92 @@ def check_fused_mlp_mb_mpc(dev):
                 mb_mpc_plain_ms=plain_ms, mb_mpc_bound_ms=b_ms,
                 mb_mpc_library_ms=library_ms,
                 mb_mpc_library_device_ms=library_device_ms)
+
+
+def graphed(fn, dev):
+    """fn captured once as a CUDA graph (after one call on a side stream);
+    returns the graph's replay."""
+    import torch
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def check_clip_adam(dev):
+    """The clip-and-Adam kernel at both models' leaf shapes (MB-MPC's
+    (512, 512) MLP, GrBAL's (512, 512, 512) meta-MLP; JAX's leaf order):
+    four steps from one state held bit for bit against the plain chain,
+    the global norm under max_norm; then a step timed eagerly (the host
+    queued ahead) and as a replayed CUDA graph, as the fits run it, beside
+    the plain chain timed the same two ways, and its device time from a
+    profiler window. Bound: each parameter's p, g, mu and nu read once and
+    p, mu and nu written once, 28 bytes over 3.35 TB/s (the ~16 f32
+    operations a parameter are far under the f32 peak)."""
+    import math
+    import torch
+    from learning_to_adapt_torch.ops import clip_adam as ca
+    hyper = (1e-3, 100.0, 0.9, 0.999, 1e-8)
+    out = {}
+    for what, dims in (('MB-MPC', MB_DIMS), ('GrBAL', MLP_DIMS)):
+        shapes = [(n,) for n in dims[1:]] + list(zip(dims[:-1], dims[1:]))
+        n = sum(math.prod(s) for s in shapes)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+
+        def leaves(scale):
+            return [torch.randn(s, generator=gen, device=dev) * scale
+                    for s in shapes]
+        state = (leaves(0.1), torch.zeros((), dtype=torch.int32, device=dev),
+                 leaves(1e-3), [x.abs() for x in leaves(1e-6)])
+        plain = ([x.clone() for x in state[0]], state[1].clone(),
+                 [x.clone() for x in state[2]], [x.clone() for x in state[3]])
+        for _ in range(4):
+            g = leaves(50.0 / n ** 0.5)
+            ca.clip_adam_cuda(state[0], g, *state[1:], *hyper)
+            ca.clip_adam_plain(plain[0], [x.clone() for x in g], *plain[1:],
+                               *hyper)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for xs, ys in zip(state, plain)
+                   for a, b in (zip(xs, ys) if isinstance(xs, list)
+                                else [(xs, ys)]))
+        log(f'clip_adam {what} leaves ({len(shapes)} leaves, {n} '
+            f'parameters): 4 unclipped steps against the plain chain, bit for '
+            f'bit {same}')
+        if not same:
+            raise AssertionError(f'clip_adam {what}: the kernel parts from '
+                                 'the plain chain on an unclipped step')
+        g = leaves(50.0 / n ** 0.5)
+        g_plain = [x.clone() for x in g]   # kept, so g / 1 * 1 in place
+
+        def kernel():
+            ca.clip_adam_cuda(state[0], g, *state[1:], *hyper)
+
+        def chain():
+            ca.clip_adam_plain(plain[0], g_plain, *plain[1:], *hyper)
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(chain)
+        graph_ms = cuda_ms(graphed(kernel, dev))
+        plain_graph_ms = cuda_ms(graphed(chain, dev))
+        dev_ms = device_ms(kernel)
+        b_ms, b_by = bound_ms(28 * n, 16 * n, F32_FLOP_PER_S)
+        log(f'clip_adam per step, {what} leaves: kernel {ms:.4f} ms, as a '
+            f'replayed graph {graph_ms:.4f} ms (device {dev_ms:.4f} ms); '
+            f'plain chain {plain_ms:.4f} ms, as a replayed graph '
+            f'{plain_graph_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: '
+            f'{28 * n / 1e6:.1f} MB)')
+        key = '' if what == 'GrBAL' else 'mb_mpc_'
+        out.update({f'{key}ms': ms, f'{key}device_ms': dev_ms,
+                    f'{key}graph_ms': graph_ms, f'{key}plain_ms': plain_ms,
+                    f'{key}plain_graph_ms': plain_graph_ms,
+                    f'{key}bound_ms': b_ms, f'{key}max_abs_err': 0.0})
+    return dict(out, name='clip_adam', route='cuda',
+                source='learning_to_adapt_torch/csrc/clip_adam.cu',
+                replaces=None, bound_by=b_by, library_ms=None, floor_ms=None)
 
 
 def check_jacobi(dev, floor_lib):
@@ -944,7 +1037,7 @@ def main_path(dev, card):
         raise AssertionError('planner actions outside [-1, 1]')
     want = dict(fused_mlp=HORIZON * PATH_LEN,
                 jacobi_solve=solves_per_env_step(env) * PATH_LEN,
-                jacobi_solve_cluster=0)
+                jacobi_solve_cluster=0, clip_adam=0)
     log(f'policy sampling launches {launches}, expected {want}; weight '
         f'packs {packs}, expected {PATH_LEN}')
     if launches != want:
@@ -1035,13 +1128,37 @@ def zero_counters():
 
 #: the kernels' names in a profiler trace
 KERNEL_NAMES = ('fused_mlp_kernel', 'jacobi_kernel', 'jacobi_cluster_kernel')
-NO_LAUNCH = dict(fused_mlp=0, pack=0, jacobi_solve=0, jacobi_solve_cluster=0)
+NO_LAUNCH = dict(fused_mlp=0, pack=0, jacobi_solve=0, jacobi_solve_cluster=0,
+                 clip_adam=0)
+
+
+def train_replays(model):
+    """Train-step replays of all the model's compiled epochs so far."""
+    return sum(pair[0].replays for e in model._epoch_cache.values()
+               for pair in e.graphs.values())
+
+
+def check_fit_launches(counts, steps, what):
+    """A fit launches the clip-and-Adam kernel LAUNCHES_PER_STEP times at
+    each of its `steps` train replays, and nothing else of ours."""
+    from learning_to_adapt_torch.ops import clip_adam
+    want = dict(NO_LAUNCH, clip_adam=clip_adam.LAUNCHES_PER_STEP * steps)
+    if not steps or counts != want:
+        raise AssertionError(f'{what}: launches {counts} != {want} for '
+                             f'{steps} train steps')
+
+
+def but_optimizer(what, counts):
+    """A call's launches, but for a fit's clip-and-Adam ones, which
+    counted_calls holds to the fit's train replays."""
+    return dict(counts, clip_adam=0) if what == 'fit' else counts
 
 
 @contextlib.contextmanager
 def counted_calls(record):
     """Appends (what, launches made inside the call) to record for every
-    Sampler.obtain_samples call and every fit of the three models."""
+    Sampler.obtain_samples call and every fit of the three models; a fit's
+    clip-and-Adam launches are held to its train replays here."""
     from learning_to_adapt_torch.models import (
         MetaMLPDynamicsModel, MLPDynamicsModel, RNNDynamicsModel)
     from learning_to_adapt_torch.samplers import Sampler
@@ -1051,12 +1168,17 @@ def counted_calls(record):
     def counted(what, fn):
         def wrapped(*args, **kwargs):
             before = counters()
+            replays = train_replays(args[0]) if what == 'fit' else 0
             out = fn(*args, **kwargs)
             after = counters()
             label = what
             if what == 'sample':
                 label = 'random' if kwargs.get('random') else 'policy'
-            record.append((label, {k: after[k] - before[k] for k in after}))
+            counts = {k: after[k] - before[k] for k in after}
+            if what == 'fit':
+                check_fit_launches(counts, train_replays(args[0]) - replays,
+                                   f'{type(args[0]).__name__}.fit')
+            record.append((label, counts))
             return out
         return wrapped
     Sampler.obtain_samples = counted('sample', originals[0])
@@ -1098,8 +1220,9 @@ def read_progress(exp_dir):
 def check_trainer_launches(policy_itr, record, total, resume_record,
                            resume_total, n_itr):
     """Per call of the trainer runs: policy_itr's launches in every policy
-    sampling call, only the Jacobi launches in the random one, nothing
-    from the fit, and no launch outside those calls."""
+    sampling call, only the Jacobi launches in the random one, from the
+    fit only clip and Adam's (held to its train replays by counted_calls),
+    and no launch outside those calls."""
     want = {'random': dict(policy_itr, fused_mlp=0, pack=0),
             'policy': policy_itr, 'fit': NO_LAUNCH}
     labels = ['random', 'fit'] + ['policy', 'fit'] * (n_itr - 1)
@@ -1110,7 +1233,7 @@ def check_trainer_launches(policy_itr, record, total, resume_record,
         if got != want_labels:
             raise AssertionError(f'{name}: calls {got} != {want_labels}')
         for what, counts in rec:
-            if counts != want[what]:
+            if but_optimizer(what, counts) != want[what]:
                 raise AssertionError(f'{name}, {what}: launches {counts} != '
                                      f'{want[what]}')
         summed = {k: sum(c[k] for _, c in rec) for k in tot}
@@ -1484,7 +1607,7 @@ def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key,
     if got != ['random', 'fit'] + ['policy', 'fit'] * (n_itr - 1):
         raise AssertionError(f'{cls_name}: calls {got}')
     for what, counts in record:
-        if counts != want[what]:
+        if but_optimizer(what, counts) != want[what]:
             raise AssertionError(f'{cls_name}, {what}: launches {counts} != '
                                  f'{want[what]}')
     if total != {k: sum(c[k] for _, c in record) for k in total}:
@@ -2231,7 +2354,10 @@ def multihost_nccl(dev, card):
         if [r[0] for r in record] != labels:
             raise AssertionError(f'calls {[r[0] for r in record]}')
         for what, launches, coll, extra in record:
-            if launches != want[what]:
+            if what == 'fit':
+                check_fit_launches(launches, extra['epochs'] *
+                                   extra['steps'], 'sharded meta fit')
+            elif launches != want[what]:
                 raise AssertionError(f'{what}: launches {launches} != '
                                      f'{want[what]}')
             if what == 'fit':
@@ -2613,6 +2739,7 @@ def main():
     kernels[0].update(check_fused_mlp_arm(dev))
     kernels[0].update(check_fused_mlp_ant(dev))
     kernels[1].update(check_jacobi_ant(dev))
+    kernels.append(check_clip_adam(dev))
     stamp('kernels')
     launches, sampler = main_path(dev, card)
     sampling_profile(sampler, 'GrBAL', card)
@@ -2674,9 +2801,12 @@ def main():
     render_phase(dev, card, replay)
     stamp('render')
     for k in kernels:
-        # the cluster kernel's main path is the blocks env's
+        # the cluster kernel's main path is the blocks env's; the
+        # clip-and-Adam kernel's the GrBAL trainer's fits
         k['launches'] = (env_itr['HalfCheetahBlocksEnv'][k['name']]
                          if k['name'] == 'jacobi_solve_cluster'
+                         else trainer_total[k['name']]
+                         if k['name'] == 'clip_adam'
                          else per_policy_itr[k['name']])
         k['trainer_launches'] = trainer_total[k['name']]
         k['mb_mpc_launches'] = mb_itr[k['name']]
@@ -2710,7 +2840,8 @@ def main():
             'arm_library_ms', 'arm_library_device_ms', 'ant_rows',
             'ant_max_abs_err', 'ant_ms', 'ant_ms_cold', 'ant_device_ms',
             'ant_plain_ms', 'ant_bound_ms', 'ant_library_ms',
-            'ant_library_device_ms')
+            'ant_library_device_ms', 'graph_ms', 'plain_graph_ms',
+            'mb_mpc_graph_ms', 'mb_mpc_plain_graph_ms')
     log(f'total {time.time() - t_start:.1f} s')
     log(card_line())
     log(json.dumps({'kernels': [{k: kern.get(k) for k in keys}

@@ -66,7 +66,7 @@ from types import SimpleNamespace
 import torch
 
 from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
-from learning_to_adapt_torch.ops import fused_mlp, jacobi
+from learning_to_adapt_torch.ops import clip_adam, fused_mlp, jacobi
 from learning_to_adapt_torch.parallel import mesh as par_mesh
 from learning_to_adapt_torch.utils import tracing
 
@@ -157,12 +157,13 @@ def run_epoch(st, steps, steps_valid, train_step, valid_step):
 
 
 def kernel_counts():
-    """The kernel counters of ops/: fused-MLP launches, weight packs and
-    both Jacobi kernels' launches."""
+    """The kernel counters of ops/: fused-MLP launches, weight packs, both
+    Jacobi kernels' launches and the clip-and-Adam kernel's."""
     return dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
                 pack=fused_mlp.pack_weights.calls,
                 jacobi_solve=jacobi.jacobi_solve.launches,
-                jacobi_solve_cluster=jacobi.jacobi_solve_cluster.launches)
+                jacobi_solve_cluster=jacobi.jacobi_solve_cluster.launches,
+                clip_adam=clip_adam.clip_adam_.launches)
 
 
 def count_kernels(counts):
@@ -172,6 +173,7 @@ def count_kernels(counts):
     fused_mlp.pack_weights.calls += counts['pack']
     jacobi.jacobi_solve.launches += counts['jacobi_solve']
     jacobi.jacobi_solve_cluster.launches += counts['jacobi_solve_cluster']
+    clip_adam.clip_adam_.launches += counts['clip_adam']
 
 
 def _counts():

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from learning_to_adapt_torch.models.normalizer import Normalizer
+from learning_to_adapt_torch.ops import clip_adam
 
 
 def tree_leaves(tree):
@@ -58,10 +59,10 @@ class ClipAdam:
     nu), mu and nu shaped as the params, on the params' device; nothing here
     reads a device value on the host.
 
-    `step_` is the one definition of the arithmetic: it updates leaf lists
-    in place (the fits' static state, which a CUDA graph replays), with
-    torch._foreach_* ops over all leaves at once. `update` is its
-    functional form on trees."""
+    `step_` updates leaf lists in place (the fits' static state, which a
+    CUDA graph replays): on the card one hand-written kernel over all
+    leaves, on the CPU its plain version (ops/clip_adam.py, which defines
+    the arithmetic). `update` is its functional form on trees."""
 
     def __init__(self, learning_rate, max_norm=100.0, b1=0.9, b2=0.999,
                  eps=1e-8):
@@ -76,41 +77,16 @@ class ClipAdam:
                     mu=tree_map(torch.zeros_like, params),
                     nu=tree_map(torch.zeros_like, params))
 
-    @torch.no_grad()
     def step_(self, params, grads, count, mu, nu):
-        """One clip + Adam step in place: params, mu and nu are lists of
-        leaves in JAX's order (any layout, the same for all four lists),
-        grads the gradients (overwritten: clipped), count the int32 0-d
-        step count. Each product and sum is rounded on its own, in optax's
-        order; the clip is a select on the device."""
-        b1, b2 = self.b1, self.b2
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
-        keep = norm < self.max_norm
-        # g / 1 * 1 when kept, else optax's g / norm * max_norm
-        one = torch.ones((), dtype=norm.dtype, device=norm.device)
-        torch._foreach_div_(grads, torch.where(keep, one, norm))
-        torch._foreach_mul_(grads, torch.where(keep, one,
-                                               one * self.max_norm))
-        # mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
-        sq = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(sq, 1 - b2)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, sq)
-        count.add_(1)
-        c = count.to(norm.dtype)
-        bc1 = 1 - torch.pow(b1, c)
-        bc2 = 1 - torch.pow(b2, c)
-        # p - lr * (mu / bc1) / (sqrt(nu / bc2) + eps)
-        den = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, den)
-        torch._foreach_mul_(upd, self.learning_rate)
-        torch._foreach_sub_(params, upd)
+        """One clip + Adam step in place (ops/clip_adam.py `clip_adam_`):
+        params, mu and nu are lists of leaves in JAX's order, grads the
+        gradients, count the int32 0-d step count. On CUDA tensors one
+        kernel over all leaves (contiguous f32, grads only read); on the
+        CPU the plain torch._foreach_* chain (any layout, grads
+        overwritten: clipped)."""
+        clip_adam.clip_adam_(params, grads, count, mu, nu,
+                             self.learning_rate, self.max_norm, self.b1,
+                             self.b2, self.eps)
 
     def update(self, grads, state, params):
         """Returns (new params, new state): step_ on copies."""

@@ -1,6 +1,7 @@
 """The compiled fit epoch of the port (learning_to_adapt_torch/models/
 captured.py), its counterpart of the JAX models' _get_epoch_fn, on the CPU:
-the in-place clip + Adam step against optax; each model's train and
+the in-place clip + Adam step against optax, on CPU tensors the plain
+chain, and the kernel wrapper's refusals; each model's train and
 validation steps on a compiled epoch's static state (its graphs run as
 plain calls on the CPU) against the JAX _get_epoch_fn epoch on the same
 injected windows, permutation or path indices; the per-epoch draws'
@@ -21,6 +22,7 @@ from _torch_parity import t
 from learning_to_adapt_torch.models import (
     MetaMLPDynamicsModel, MLPDynamicsModel, RNNDynamicsModel, captured)
 from learning_to_adapt_torch.models.optim import ClipAdam, tree_leaves
+from learning_to_adapt_torch.ops import clip_adam
 from learning_to_adapt_torch.parallel import mesh as par_mesh
 
 torch.set_num_threads(2)  # the suite runs 6 workers on 8 cores
@@ -126,6 +128,85 @@ def test_functional_update_is_the_in_place_step_on_copies():
     assert int(new_state['count']) == int(count) == 1
     for a, b in zip(tree_leaves(new_state['nu']), nu):
         assert torch.equal(a, b)
+
+
+def _no_kernel(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError('the CUDA kernel was reached')
+    monkeypatch.setattr(clip_adam, '_lib', refuse)
+    monkeypatch.setattr(clip_adam, 'clip_adam_cuda', refuse)
+
+
+@pytest.mark.parametrize('scale', [1.0, 300.0], ids=['kept', 'clipped'])
+def test_cpu_step_takes_the_plain_chain(monkeypatch, scale):
+    """On CPU tensors ClipAdam.step_ is clip_adam_plain bit for bit, with
+    no launch counted and nothing of the kernel reached."""
+    _no_kernel(monkeypatch)
+    rng = np.random.RandomState(2)
+    shapes = [(5,), (3, 5), (4,)]
+    leaves = [t(rng.randn(*s)) for s in shapes]
+    grads = [t(rng.randn(*s) * scale) for s in shapes]
+    mu = [t(rng.randn(*s) * 0.1) for s in shapes]
+    nu = [t(rng.rand(*s) * 0.1) for s in shapes]
+    count = torch.tensor(4, dtype=torch.int32)
+    copies = [[x.clone() for x in xs] for xs in (leaves, grads, mu, nu)]
+    want_count = count.clone()
+    launches = clip_adam.clip_adam_.launches
+    ClipAdam(1e-3).step_(leaves, grads, count, mu, nu)
+    norm = clip_adam.clip_adam_plain(*copies[:2], want_count, *copies[2:],
+                                     1e-3, 100.0, 0.9, 0.999, 1e-8)
+    assert (float(norm) >= 100.0) == (scale > 1.0)
+    assert clip_adam.clip_adam_.launches == launches
+    assert torch.equal(count, want_count)
+    for got, want in zip((leaves, grads, mu, nu), copies):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _refused(case):
+    """Leaves on the meta device (shapes, dtypes and strides without
+    storage) that the kernel does not take, but for the 'meta' case, which
+    it takes in all but the device; the error each raises."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device='meta')
+    params, grads = [z(4, 3), z(2)], [z(4, 3), z(2)]
+    mu, nu = [z(4, 3), z(2)], [z(4, 3), z(2)]
+    count = z(dtype=torch.int32)
+    err = ValueError
+    if case == 'float64':
+        grads[1], err = z(2, dtype=torch.float64), TypeError
+    elif case == 'transposed':
+        nu[0] = z(3, 4).T
+    elif case == 'shape':
+        mu[1] = z(3)
+    elif case == 'device':
+        count = torch.zeros((), dtype=torch.int32)
+    elif case == 'count_int64':
+        count, err = z(dtype=torch.int64), TypeError
+    elif case == 'count_shape':
+        count, err = z(1, dtype=torch.int32), TypeError
+    elif case == 'lengths':
+        nu = nu[:1]
+    elif case == 'too_many':
+        n = clip_adam.MAX_LEAVES + 1
+        params, grads, mu, nu = ([z(2)] * n for _ in range(4))
+    return (params, grads, count, mu, nu), err
+
+
+@pytest.mark.parametrize('case', [
+    'float64', 'transposed', 'shape', 'device', 'count_int64', 'count_shape',
+    'lengths', 'too_many', 'meta'])
+def test_kernel_wrapper_refuses_what_it_does_not_take(monkeypatch, case):
+    """clip_adam_cuda checks every leaf and the count before it builds or
+    launches anything, and raises on what the kernel does not take; its
+    rules do not depend on the device, so meta tensors show them here."""
+    monkeypatch.setattr(clip_adam, '_lib', lambda: pytest.fail('built'))
+    tensors, err = _refused(case)
+    with pytest.raises(err, match='clip_adam'):
+        clip_adam.clip_adam_cuda(*tensors, 1e-3, 100.0, 0.9, 0.999, 1e-8)
+    if case == 'meta':
+        with pytest.raises(ValueError, match='unsupported device'):
+            clip_adam.clip_adam_(*tensors, 1e-3, 100.0, 0.9, 0.999, 1e-8)
 
 
 # --------------------------------------- the static-state steps vs JAX

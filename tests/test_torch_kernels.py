@@ -7,10 +7,11 @@ no CPU or interpret mode). On a machine with one:
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
-from learning_to_adapt_torch.ops import fused_mlp, jacobi
+from learning_to_adapt_torch.ops import clip_adam, fused_mlp, jacobi
 
 pytestmark = pytest.mark.cuda
 
@@ -442,3 +443,215 @@ def test_jacobi_kernel_refuses_float64(dev):
     args = [a.double() for a in _system(dev, 2, 8, seed=0)]
     with pytest.raises(TypeError):
         jacobi.jacobi_solve(*args, 10)
+
+
+# ------------------------------------------------------------ clip + Adam
+# ClipAdam's defaults: learning rate, max_norm, b1, b2, eps
+HYPER = (1e-3, 100.0, 0.9, 0.999, 1e-8)
+
+
+def _mlp_leaves(dims, members=()):
+    """An MLP's leaf shapes in JAX's order: the biases, then the weights."""
+    m = tuple(members)
+    return ([m + (n,) for n in dims[1:]] +
+            [m + (k, n) for k, n in zip(dims[:-1], dims[1:])])
+
+
+#: leaf shapes (JAX's order) of the models the fits step
+LEAF_SETS = {
+    'mb_mpc': _mlp_leaves((26, 512, 512, 20)),
+    'grbal': _mlp_leaves((26, 512, 512, 512, 20)),
+    'ensemble': _mlp_leaves((26, 512, 512, 20), (3,)),
+    # ReBAL's LSTM (256,) as its fit holds it: [b, wh.T, wi.T], then the
+    # output layer's b and w
+    'lstm': [(1024,), (1024, 256), (1024, 26), (20,), (256, 20)],
+    # slices of one buffer: three leaves off 16-byte alignment, tails of 1-3
+    'ragged': [(1,), (3,), (5,), (65537,)],
+}
+
+
+def _leaves(dev, shapes, gen, scale, ragged):
+    if not ragged:
+        return [torch.randn(s, generator=gen, device=dev) * scale
+                for s in shapes]
+    sizes = [int(np.prod(s)) for s in shapes]
+    flat = torch.randn(sum(sizes), generator=gen, device=dev) * scale
+    return [x.view(s) for x, s in zip(flat.split(sizes), shapes)]
+
+
+def _adam_state(dev, name, count, seed=0):
+    """params, mu, nu (nu >= 0) and a count for LEAF_SETS[name], and
+    grads(scale): gradients of global norm ~ scale."""
+    shapes = LEAF_SETS[name]
+    ragged = name == 'ragged'
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = _leaves(dev, shapes, gen, 0.1, ragged)
+    mu = _leaves(dev, shapes, gen, 1e-3, ragged)
+    nu = [x.abs() for x in _leaves(dev, shapes, gen, 1e-6, ragged)]
+    if ragged:       # abs() made new storage: slices of one buffer again
+        flat = torch.cat([x.flatten() for x in nu])
+        nu = [x.view(s) for x, s in zip(
+            flat.split([x.numel() for x in nu]), shapes)]
+    n = sum(int(np.prod(s)) for s in shapes)
+
+    def grads(norm):
+        return _leaves(dev, shapes, gen, norm / n ** 0.5, ragged)
+    return (params, mu, nu, torch.tensor(count, dtype=torch.int32,
+                                         device=dev)), grads
+
+
+def _copy(state):
+    params, mu, nu, count = state
+    return ([x.clone() for x in params], [x.clone() for x in mu],
+            [x.clone() for x in nu], count.clone())
+
+
+def _kernel_step(state, g):
+    params, mu, nu, count = state
+    before = clip_adam.clip_adam_.launches
+    norm = clip_adam.clip_adam_(params, g, count, mu, nu, *HYPER)
+    assert clip_adam.clip_adam_.launches == before + \
+        clip_adam.LAUNCHES_PER_STEP
+    return norm
+
+
+def _plain_step(state, g):
+    params, mu, nu, count = state
+    return clip_adam.clip_adam_plain(params, [x.clone() for x in g], count,
+                                     mu, nu, *HYPER)
+
+
+def _ulps(a, b):
+    """Largest |a - b| in units of b's last place."""
+    b = b.abs()
+    ulp = torch.nextafter(b, torch.full_like(b, float('inf'))) - b
+    return float(((a.abs() - b).abs() / ulp).max())
+
+
+def _assert_equal(got, want):
+    for xs, ys in zip(got, want):
+        if torch.is_tensor(xs):
+            assert torch.equal(xs, ys)
+        else:
+            for x, y in zip(xs, ys):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize('count', [0, 999, 99999])
+@pytest.mark.parametrize('name', list(LEAF_SETS))
+def test_clip_adam_kernel_matches_plain_unclipped(dev, name, count):
+    """Four steps of the kernel and of the plain chain from one state, the
+    global norm under max_norm: params, mu, nu and count bit for bit; the
+    two norms within 2 ulp."""
+    state, grads = _adam_state(dev, name, count)
+    plain = _copy(state)
+    for _ in range(4):
+        g = grads(50.0)
+        norm = _kernel_step(state, g)
+        want = _plain_step(plain, g)
+        torch.cuda.synchronize()
+        assert float(norm) < 100.0 and _ulps(norm, want) <= 2
+        _assert_equal(state, plain)
+    assert int(state[3]) == count + 4
+
+
+@pytest.mark.parametrize('name', list(LEAF_SETS))
+def test_clip_adam_kernel_clipped(dev, name, monkeypatch):
+    """Two steps with the global norm over max_norm: the same decision to
+    clip; the kernel's norm within 2 ulp of the plain chain's and within 1
+    of the f64 norm of the same f32 squares; and the plain chain given the
+    kernel's norm equal to the kernel bit for bit, so that only the norm's
+    summation order parts the two steps. (Elementwise, the steps then part
+    by as many ulps as the norm's gap gives: a moment that cancels to near
+    0 keeps the gap at the scale of its terms, and nu holds g^2.)"""
+    state, grads = _adam_state(dev, name, 0)
+    plain = _copy(state)
+    for step in range(2):
+        g = grads(400.0)
+        given = _copy(state)
+        norm = _kernel_step(state, g)
+        want = _plain_step(plain, g)
+        with monkeypatch.context() as m:   # the chain on the kernel's norm
+            m.setattr(torch.linalg, 'vector_norm', lambda x: norm.clone())
+            _plain_step(given, g)
+        exact = torch.stack([(x * x).double().sum() for x in g]).sum().sqrt()
+        torch.cuda.synchronize()
+        assert float(norm) >= 100.0 and float(want) >= 100.0
+        gap = _ulps(norm, want)
+        assert gap <= 2 and _ulps(norm, exact.float()) <= 1
+        _assert_equal(state, given)
+        worst = {k: max(_ulps(a, b) for a, b in zip(state[i], plain[i]))
+                 for i, k in enumerate(('params', 'mu', 'nu'))}
+        print(f'clip_adam {name} clipped step {step}: norm {float(norm)!r}, '
+              f'plain {float(want)!r} ({gap:g} ulp), f64 {float(exact)!r}; '
+              f'elementwise ulps from the plain step {worst}')
+        plain = _copy(state)
+
+
+def test_clip_adam_kernel_repeats_itself(dev):
+    """Two runs from one state give the same bits, clipped or not."""
+    runs = []
+    for _ in range(2):
+        state, grads = _adam_state(dev, 'grbal', 7, seed=3)
+        norms = [_kernel_step(state, grads(norm)) for norm in (50.0, 400.0)]
+        torch.cuda.synchronize()
+        runs.append((state, norms))
+    _assert_equal(runs[0][0], runs[1][0])
+    _assert_equal(runs[0][1], runs[1][1])
+
+
+def test_clip_adam_kernel_in_a_cuda_graph(dev):
+    """A step captured once (models/captured.py StepGraph) and replayed
+    with new gradients copied in between equals the eager steps bit for
+    bit; the counter counts the step's launches at each replay."""
+    from learning_to_adapt_torch.models import captured
+    from learning_to_adapt_torch.models.optim import ClipAdam
+    state, grads = _adam_state(dev, 'mb_mpc', 0)
+    start, eager = _copy(state), _copy(state)
+    g_static = [torch.zeros_like(x) for x in state[0]]
+    adam = ClipAdam(*HYPER)
+    params, mu, nu, count = state
+
+    def reset():
+        for dst, src in zip(state, start):
+            if torch.is_tensor(dst):
+                dst.copy_(src)
+            else:
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+    graph = captured.StepGraph(
+        lambda: adam.step_(params, g_static, count, mu, nu), dev)
+    graph.capture(reset)
+    assert graph.kernels == dict(
+        {k: 0 for k in captured.kernel_counts()},
+        clip_adam=clip_adam.LAUNCHES_PER_STEP)
+    before = captured.kernel_counts()['clip_adam']
+    for norm in (50.0, 400.0, 50.0):
+        g = grads(norm)
+        for d, s in zip(g_static, g):
+            d.copy_(s)
+        graph()
+        _kernel_step(eager, g)
+    torch.cuda.synchronize()
+    _assert_equal(state, eager)
+    assert captured.kernel_counts()['clip_adam'] == before + \
+        3 * clip_adam.LAUNCHES_PER_STEP + 3 * clip_adam.LAUNCHES_PER_STEP
+
+
+@pytest.mark.parametrize('case', ['float64', 'transposed', 'device'])
+def test_clip_adam_kernel_refuses(dev, case):
+    """On the card: a float64 leaf, a transposed one, a count on the CPU:
+    an error, nothing launched."""
+    state, grads = _adam_state(dev, 'mb_mpc', 0)
+    params, mu, nu, count = state
+    g = grads(50.0)
+    if case == 'float64':
+        g[0] = g[0].double()
+    elif case == 'transposed':
+        params[3] = params[3].T.contiguous().T
+    else:
+        count = count.cpu()
+    before = clip_adam.clip_adam_.launches
+    with pytest.raises((TypeError, ValueError), match='clip_adam'):
+        clip_adam.clip_adam_cuda(params, g, count, mu, nu, *HYPER)
+    assert clip_adam.clip_adam_.launches == before

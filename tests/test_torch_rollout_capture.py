@@ -28,7 +28,7 @@ from learning_to_adapt_torch.models import (
     MetaMLPDynamicsModel, MLPDynamicsModel, Normalizer, RNNDynamicsModel,
     captured)
 from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
-from learning_to_adapt_torch.ops import fused_mlp, jacobi
+from learning_to_adapt_torch.ops import clip_adam, fused_mlp, jacobi
 from learning_to_adapt_torch.physics import engine as port_engine
 from learning_to_adapt_torch.physics import spec as port_spec
 from learning_to_adapt_torch.policies import MPCController, RNNMPCController
@@ -381,11 +381,12 @@ def test_pack_in_place_keeps_its_addresses():
 def test_kernel_counts_round_trip():
     before = captured.kernel_counts()
     captured.count_kernels(dict(fused_mlp=3, pack=1, jacobi_solve=2,
-                                jacobi_solve_cluster=0))
+                                jacobi_solve_cluster=0, clip_adam=4))
     after = captured.kernel_counts()
     captured.count_kernels({k: before[k] - after[k] for k in after})
     assert {k: after[k] - before[k] for k in after} == dict(
-        fused_mlp=3, pack=1, jacobi_solve=2, jacobi_solve_cluster=0)
+        fused_mlp=3, pack=1, jacobi_solve=2, jacobi_solve_cluster=0,
+        clip_adam=4)
     assert captured.kernel_counts() == before
 
 
@@ -427,6 +428,7 @@ def test_step_graph_counts_replays(monkeypatch):
         fused_mlp.fused_mlp_forward.launches += 10
         fused_mlp.pack_weights.calls += 1
         jacobi.jacobi_solve.launches += 4
+        clip_adam.clip_adam_.launches += clip_adam.LAUNCHES_PER_STEP
 
     graph = captured.StepGraph(step, 'cuda', generator=gen)
     state = gen.get_state()
@@ -435,7 +437,8 @@ def test_step_graph_counts_replays(monkeypatch):
     graph.capture(lambda: resets.append(1))
     assert gc.isenabled()
     per_step = dict(fused_mlp=10, pack=1, jacobi_solve=4,
-                    jacobi_solve_cluster=0)
+                    jacobi_solve_cluster=0,
+                    clip_adam=clip_adam.LAUNCHES_PER_STEP)
     assert captured.kernel_counts() == before and len(resets) == 4
     assert graph.kernels == per_step
     assert graph.warmup_kernels == {k: captured.WARMUP * n
