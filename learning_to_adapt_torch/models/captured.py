@@ -53,11 +53,12 @@ other.
 Spans (utils/tracing.py): a host span around each replay ('fit.train_step',
 'fit.valid_step', 'rollout.step'); with tracing on, a StepGraph captures
 its step's device stamps (the step's begin and end, and the spans inside
-it: 'fit.loss', 'fit.grad', 'fit.optim'; 'rollout.plan', 'rollout.adapt',
-'rollout.env_step'), which fire at every replay. The graphs are kept by
-the tracing state at their capture, so stamped copies stand beside the
-graphs captured with tracing off and leave them as they were. Every
-capture counts 'graph.captures' and 'graph.capture_s'.
+it: 'fit.loss', 'fit.grad', 'fit.optim', the recurrent model's 'rnn.seq';
+'rollout.plan', 'rollout.adapt', 'rollout.env_step'), which fire at every
+replay. The graphs are kept by the tracing state at their capture, so
+stamped copies stand beside the graphs captured with tracing off and
+leave them as they were. Every capture counts 'graph.captures' and
+'graph.capture_s'.
 """
 import gc
 import time

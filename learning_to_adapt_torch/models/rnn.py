@@ -36,6 +36,16 @@ the epoch's path indices drawn eagerly into the step's index table. On
 the CPU and over gloo it runs epoch_fn, which calls the same steps
 eagerly.
 
+Spans and counters (utils/tracing.py): each call of the recurrent layer
+op is the span 'rnn.seq' (one a layer and TBPTT chunk in a train step,
+nested in 'fit.loss'; one a layer over the whole test set in the
+validation step), stamped on the device inside the captured steps as the
+'fit.*' spans are; with tracing off it is the record_function range it
+would be and the captured graphs launch nothing more. The counter
+'rnn.seq_steps' adds the time steps of each such call where the host
+issues it: every call on the eager paths, and on the card each capture's
+calls once (its warm-ups count nothing), not the replays.
+
 With `model.mesh` set (parallel/mesh.py) the fit is data parallel: every
 rank holds the whole host dataset (the sampler gathered it) and draws the
 same path indices, but stages only its slice of the padded paths. A train
@@ -143,15 +153,18 @@ class RNNDynamicsModel:
     def _layer_seq(self, weights, x, h):
         """x (B, T, in) through one layer from hidden h, in torch's
         recurrent layer op (torch.lstm / gru / rnn_tanh: cuDNN on the
-        card) with the layer's `weights` ([w_ih, w_hh, b_ih, b_hh])."""
+        card) with the layer's `weights` ([w_ih, w_hh, b_ih, b_hh]); the
+        span 'rnn.seq', and T added to the counter 'rnn.seq_steps'."""
+        tracing.count('rnn.seq_steps', x.shape[1])
         # cuDNN keeps what its backward needs only in training mode
         args = (weights, True, 1, 0.0, torch.is_grad_enabled(), False, True)
-        if self.cell_type == 'lstm':
-            out, hn, cn = torch.lstm(x, (h[0][None], h[1][None]), *args)
-            return out, (hn[0], cn[0])
-        op = torch.gru if self.cell_type == 'gru' else torch.rnn_tanh
-        out, hn = op(x, h[None], *args)
-        return out, hn[0]
+        with tracing.span('rnn.seq'):
+            if self.cell_type == 'lstm':
+                out, hn, cn = torch.lstm(x, (h[0][None], h[1][None]), *args)
+                return out, (hn[0], cn[0])
+            op = torch.gru if self.cell_type == 'gru' else torch.rnn_tanh
+            out, hn = op(x, h[None], *args)
+            return out, hn[0]
 
     def _seq(self, layers, out, norm, obs, act, hidden):
         """forward_seq over each layer's torch weights `layers` and the

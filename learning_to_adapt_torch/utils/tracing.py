@@ -8,8 +8,11 @@ host's phases and for the parts of the steps that replay as CUDA graphs.
                       the spans inside it share its call id, and the device
                       stamps of its replays are read at its end; calls(name)
                       decorates a function whose calls are such spans
-    count(name, n=1)  adds n to a counter; counters are always kept (they
-                      sit on rare events: a graph's capture)
+    count(name, n=1)  adds n to a counter; counters are always kept, with
+                      tracing on or off (they sit on host events that a
+                      replay does not repeat: a graph's capture, a
+                      recurrent op's call), but not in a capture's
+                      warm-ups (`quiet`)
     enable(on), enabled(), records(), totals(), counters(), reset()
 
 Tracing is off by default, and the benchmark measures it off: a span is
@@ -26,15 +29,22 @@ its slot into a ring in device memory at every replay. A stamp carries the
 span edges at its place in the step (the step's begin, a span's open, a
 span's close, the step's end); edges with nothing launched between them
 share one stamp (the capture is asked for its tail), so each stamp closes
-one part and opens the next: a train step has 4 (its three spans end it),
-a validation step 2, an MB-MPC sampling step 4 (the copies of the carry
-follow its last span), a GrBAL one 5 before its adaptation gate and 7
-after it (its adaptation and pack nest in the plan). A call reads the ring
+one part and opens the next: a train step has 4 (its three spans end it;
+a recurrent model's 2 more a layer and TBPTT chunk, for 'rnn.seq' inside
+'fit.loss'), a validation step 2 (the recurrent model's 4), an MB-MPC
+sampling step 4 (the copies of the carry follow its last span), a GrBAL
+one 5 before its adaptation gate and 7 after it (its adaptation and pack
+nest in the plan). A call reads the ring
 at its end in one copy and turns the stamps into records of clock
 'device': the step itself from its first stamp to its last, its parent
 the host span around the replay, and each span inside it. On the CPU, on
 the eager paths and in everything outside a graph, spans are timed by the
 host (clock 'host'); the warm-ups before a capture record nothing.
+The spans inside the captured steps: 'fit.loss', 'fit.grad', 'fit.optim'
+(every fit's train step), 'rnn.seq' (models/rnn.py: each call of the
+recurrent layer op, in 'fit.loss' and in the validation step),
+'rollout.plan' (with 'rollout.adapt' and 'rollout.pack' inside) and
+'rollout.env_step'.
 
 One clock: every start and end is on the clock of the profiler's host
 events, CLOCK_REALTIME (time.time_ns(); the check on the card is in
@@ -89,7 +99,8 @@ def enabled():
 
 
 def count(name, n=1):
-    _counters[name] = _counters.get(name, 0) + n
+    if not _state['quiet']:
+        _counters[name] = _counters.get(name, 0) + n
 
 
 def counters():
@@ -165,7 +176,8 @@ def calls(name):
 
 
 class quiet:
-    """Spans inside record nothing (a capture's warm-ups)."""
+    """Spans inside record nothing and counts count nothing (a capture's
+    warm-ups)."""
 
     def __enter__(self):
         _state['quiet'] += 1
