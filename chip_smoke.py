@@ -1035,7 +1035,7 @@ def main_path(dev, card):
         raise AssertionError('observation chain broken')
     if np.abs(paths['actions']).max() > 1.0:
         raise AssertionError('planner actions outside [-1, 1]')
-    want = dict(fused_mlp=HORIZON * PATH_LEN,
+    want = dict(fused_mlp=HORIZON * PATH_LEN, fused_mlp_wgmma=0,
                 jacobi_solve=solves_per_env_step(env) * PATH_LEN,
                 jacobi_solve_cluster=0, clip_adam=0)
     log(f'policy sampling launches {launches}, expected {want}; weight '
@@ -1128,8 +1128,8 @@ def zero_counters():
 
 #: the kernels' names in a profiler trace
 KERNEL_NAMES = ('fused_mlp_kernel', 'jacobi_kernel', 'jacobi_cluster_kernel')
-NO_LAUNCH = dict(fused_mlp=0, pack=0, jacobi_solve=0, jacobi_solve_cluster=0,
-                 clip_adam=0)
+NO_LAUNCH = dict(fused_mlp=0, fused_mlp_wgmma=0, pack=0, jacobi_solve=0,
+                 jacobi_solve_cluster=0, clip_adam=0)
 
 
 def train_replays(model):
@@ -1223,7 +1223,8 @@ def check_trainer_launches(policy_itr, record, total, resume_record,
     sampling call, only the Jacobi launches in the random one, from the
     fit only clip and Adam's (held to its train replays by counted_calls),
     and no launch outside those calls."""
-    want = {'random': dict(policy_itr, fused_mlp=0, pack=0),
+    want = {'random': dict(policy_itr, fused_mlp=0, fused_mlp_wgmma=0,
+                           pack=0),
             'policy': policy_itr, 'fit': NO_LAUNCH}
     labels = ['random', 'fit'] + ['policy', 'fit'] * (n_itr - 1)
     for name, rec, tot, want_labels in (
@@ -1350,7 +1351,8 @@ def mb_mpc_trainer_phase(dev, card, keep):
         dev, card, run_mb_mpc.ENTRY, cfg, MB_HEADER_CSV,
         ('TrainLoss', 'ValidLoss'),
         lambda solves: dict(NO_LAUNCH, fused_mlp=MB_HORIZON * t_len,
-                            pack=1, jacobi_solve=solves * t_len), keep)
+                            fused_mlp_wgmma=MB_HORIZON * t_len, pack=1,
+                            jacobi_solve=solves * t_len), keep)
     sampling_profile(trainer.sampler, 'MB-MPC', card)
     return per_itr, total, trainer
 
@@ -1599,9 +1601,12 @@ def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key,
                              'env')
     physics = solves_per_env_step(trainer.env.wrapped_env) * PATH_LEN
     check_captured(trainer.sampler, f'{module} --env {cls_name}')
+    # MB-MPC's 20,000 rows a launch take the warpgroup-MMA kernel
     policy = dict(NO_LAUNCH, fused_mlp=mlp, pack=packs,
+                  fused_mlp_wgmma=mlp if module == 'run_mb_mpc' else 0,
                   **{jacobi_key: physics})
-    want = {'random': dict(policy, fused_mlp=0, pack=0), 'policy': policy,
+    want = {'random': dict(policy, fused_mlp=0, fused_mlp_wgmma=0, pack=0),
+            'policy': policy,
             'fit': NO_LAUNCH}
     got = [what for what, _ in record]
     if got != ['random', 'fit'] + ['policy', 'fit'] * (n_itr - 1):
@@ -2153,7 +2158,8 @@ def meta_test_phase(dev, card, snap):
         raise AssertionError(f'ReBAL modes gave equal returns {means}')
     results, record, _ = run_meta_test(snap['mb_mpc'], [], dev)
     check_modes('MB-MPC', results, record, ('mb_mpc',),
-                dict(NO_LAUNCH, fused_mlp=MB_HORIZON * PATH_LEN, pack=1,
+                dict(NO_LAUNCH, fused_mlp=MB_HORIZON * PATH_LEN,
+                     fused_mlp_wgmma=MB_HORIZON * PATH_LEN, pack=1,
                      jacobi_solve=cheetah), [0])
     log(f'ReBAL and MB-MPC meta-tests: {time.time() - t0:.1f} s')
 

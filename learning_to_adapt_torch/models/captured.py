@@ -58,7 +58,9 @@ it: 'fit.loss', 'fit.grad', 'fit.optim', the recurrent model's 'rnn.seq';
 replay. The graphs are kept by the tracing state at their capture, so
 stamped copies stand beside the graphs captured with tracing off and
 leave them as they were. Every capture counts 'graph.captures' and
-'graph.capture_s'.
+'graph.capture_s'; every replay of a step that launches the fused MLP
+counts its launches on the warpgroup-MMA kernel in
+'fused_mlp.wgmma_launches' (0 where none), as an eager launch does.
 """
 import gc
 import time
@@ -158,9 +160,11 @@ def run_epoch(st, steps, steps_valid, train_step, valid_step):
 
 
 def kernel_counts():
-    """The kernel counters of ops/: fused-MLP launches, weight packs, both
-    Jacobi kernels' launches and the clip-and-Adam kernel's."""
+    """The kernel counters of ops/: fused-MLP launches (and those of them on
+    the warpgroup-MMA kernel), weight packs, both Jacobi kernels' launches
+    and the clip-and-Adam kernel's."""
     return dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
+                fused_mlp_wgmma=fused_mlp.fused_mlp_forward.wgmma_launches,
                 pack=fused_mlp.pack_weights.calls,
                 jacobi_solve=jacobi.jacobi_solve.launches,
                 jacobi_solve_cluster=jacobi.jacobi_solve_cluster.launches,
@@ -171,6 +175,7 @@ def count_kernels(counts):
     """Adds counts (as kernel_counts() gives them) to the kernel counters:
     a captured step's launches at each replay."""
     fused_mlp.fused_mlp_forward.launches += counts['fused_mlp']
+    fused_mlp.fused_mlp_forward.wgmma_launches += counts['fused_mlp_wgmma']
     fused_mlp.pack_weights.calls += counts['pack']
     jacobi.jacobi_solve.launches += counts['jacobi_solve']
     jacobi.jacobi_solve_cluster.launches += counts['jacobi_solve_cluster']
@@ -272,6 +277,9 @@ class StepGraph:
             tracing.replayed(self.device, self.stamps)
         par_mesh.count_collectives(self.collectives)
         count_kernels(self.kernels)
+        if self.kernels['fused_mlp']:
+            tracing.count('fused_mlp.wgmma_launches',
+                          self.kernels['fused_mlp_wgmma'])
 
 
 class CompiledEpoch:

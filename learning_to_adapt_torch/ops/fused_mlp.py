@@ -15,9 +15,12 @@ counterpart of the JAX wrapper's `w.astype(jnp.bfloat16)` outside its
 Pallas body.
 
 `fused_mlp_forward` is what the model calls, with per-layer weight lists or
-a `PackedMLP`. On CUDA tensors it launches the kernel, csrc/fused_mlp.cu,
-or raises; only tensors on the CPU take the plain version,
-`fused_mlp_plain`, which defines the numerics.
+a `PackedMLP`. On CUDA tensors it launches one of the two kernels of
+csrc/fused_mlp.cu, or raises; only tensors on the CPU take the plain
+version, `fused_mlp_plain`, which defines the numerics. `wgmma_path` picks
+the kernel from the launch's shape: the 64-row warpgroup-MMA kernel where
+one weight set serves every row and the rows fill the card's SMs (MB-MPC's
+planner, 20,000 rows), else the 16-row kernel (GrBAL's per-env weights).
 """
 import ctypes
 import functools
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from learning_to_adapt_torch.ops import build
+from learning_to_adapt_torch.utils import tracing
 
 ACTIVATIONS = ('relu', 'tanh', 'swish', 'sigmoid')
 
@@ -34,6 +38,17 @@ ACTIVATIONS = ('relu', 'tanh', 'swish', 'sigmoid')
 #: (kKC and kNC of csrc/fused_mlp.cu)
 TILE_K, TILE_N = 64, 128
 TILE_ELEMS = TILE_K * TILE_N
+#: rows a block of the warpgroup-MMA kernel (kWM), and its ring stages
+#: (kWStages) of two tiles each (kWPair)
+WGMMA_ROWS = 64
+WGMMA_STAGES = 3
+#: rows per SM from which a launch on one weight set takes the warpgroup-MMA
+#: kernel: a 64-row block for every SM (8,448 rows on 132 SMs). Below that
+#: the SMs it leaves idle wait on one block's pass over the weights; it
+#: measured faster than the 16-row kernel from ~2,500 rows at MB-MPC's
+#: widths (PERF.md section 6), and the bar above that keeps GrBAL's
+#: 2,500-row launches on the 16-row kernel
+WGMMA_MIN_ROWS_PER_SM = 64
 
 
 def _activate(h, name):
@@ -254,6 +269,44 @@ def _check_packed(x, packed):
                          f'{packed.dims}')
 
 
+# -------------------------------------------------------------- dispatch
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def wgmma_smem_bytes(dims):
+    """Shared-memory bytes of one block of the warpgroup-MMA kernel for layer
+    widths dims (fused_mlp_wgmma_smem_bytes of csrc/fused_mlp.cu): 1,024 of
+    alignment, the ring, two bf16 activation buffers of WGMMA_ROWS rows as
+    wide as the widest input or hidden layer (padded to a tile), the
+    mbarriers."""
+    width = max([_round_up(dims[0], TILE_K)] +
+                [_round_up(d, TILE_N) for d in dims[1:-1]])
+    return 1024 + WGMMA_STAGES * 2 * 2 * TILE_ELEMS + \
+        2 * 2 * WGMMA_ROWS * width + 2 * WGMMA_STAGES * 8
+
+
+def wgmma_path(groups, rows, w_gstride, b_gstrides, dims, sms):
+    """Whether a launch takes the warpgroup-MMA kernel: one weight set
+    serves every row (one group, or weight and bias group strides all 0),
+    the groups' rows together reach WGMMA_MIN_ROWS_PER_SM for each of the
+    card's `sms` SMs, and a block fits in shared memory at these widths."""
+    shared = groups == 1 or (w_gstride == 0 and not any(b_gstrides))
+    return (shared and groups * rows >= WGMMA_MIN_ROWS_PER_SM * sms and
+            wgmma_smem_bytes(dims) <= build.SMEM_LIMIT)
+
+
+_SMS = {}
+
+
+def _sm_count(device):
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 # ---------------------------------------------------------------- kernel
 def _lib():
     lib = build.load('fused_mlp')
@@ -261,10 +314,12 @@ def _lib():
         p = ctypes.c_void_p
         i = ctypes.c_int
         lib.fused_mlp_forward.argtypes = [
-            p, p, i, i, i, p, p, ctypes.c_int64, p, p, i, p]
+            p, p, i, i, i, p, p, ctypes.c_int64, p, p, i, i, p]
         lib.fused_mlp_forward.restype = i
         lib.fused_mlp_smem_bytes.argtypes = [i, p]
         lib.fused_mlp_smem_bytes.restype = i
+        lib.fused_mlp_wgmma_smem_bytes.argtypes = [i, p]
+        lib.fused_mlp_wgmma_smem_bytes.restype = i
         lib.fused_mlp_max_layers.argtypes = []
         lib.fused_mlp_max_layers.restype = i
         lib.fused_mlp_tile_bytes.argtypes = []
@@ -277,22 +332,33 @@ def _lib():
 
 
 def fused_mlp_cuda(x, ws, bs=None, hidden_nonlinearity='relu'):
-    """Launch the kernel. x float32 on a CUDA device; ws a PackedMLP (bs
-    None) or per-layer float32 weights and biases, which are then packed
-    here on every call (and counted in pack_weights.calls): callers that
-    reuse weights pack them once."""
+    """Launch the kernel `wgmma_path` picks. x float32 on a CUDA device; ws
+    a PackedMLP (bs None) or per-layer float32 weights and biases, which are
+    then packed here on every call (and counted in pack_weights.calls):
+    callers that reuse weights pack them once."""
+    packed = ws if isinstance(ws, PackedMLP) else pack_weights(ws, bs)
+    _check_packed(x, packed)
+    return _launch(x, packed, hidden_nonlinearity)
+
+
+def _launch(x, packed, hidden_nonlinearity, wgmma=None):
+    """One launch of the 16-row kernel or (wgmma) of the warpgroup-MMA
+    kernel, the one `wgmma_path` picks where wgmma is None; counted in
+    fused_mlp_forward.launches and .wgmma_launches."""
     if hidden_nonlinearity not in ACTIVATIONS:
         raise ValueError(f'unknown hidden nonlinearity {hidden_nonlinearity!r}')
     if x.dtype != torch.float32:
         raise TypeError(f'fused_mlp: x must be float32, got {x.dtype}')
-    packed = ws if isinstance(ws, PackedMLP) else pack_weights(ws, bs)
-    _check_packed(x, packed)
     w = packed.w
     if w.device != x.device or w.dtype != torch.bfloat16 or \
             w.stride(1) != 1 or w.data_ptr() % 16 or w.stride(0) % 8:
         raise TypeError('fused_mlp: packed weights must be a bf16 tile '
                         f'stream on {x.device}, 16-byte aligned')
     lib = _lib()
+    if wgmma is None:
+        wgmma = wgmma_path(x.shape[0], x.shape[1], w.stride(0),
+                           [b.stride(0) for b in packed.bs], packed.dims,
+                           _sm_count(x.device))
     c_dims, b_ptrs, b_gs = packed.c_args
     n_layers = len(packed.bs)
     if n_layers > lib.fused_mlp_max_layers():
@@ -309,9 +375,13 @@ def fused_mlp_cuda(x, ws, bs=None, hidden_nonlinearity='relu'):
         rc = lib.fused_mlp_forward(
             x.data_ptr(), out.data_ptr(), g, r, n_layers, c_dims,
             w.data_ptr(), 2 * w.stride(0), b_ptrs, b_gs,
-            ACTIVATIONS.index(hidden_nonlinearity), stream)
+            ACTIVATIONS.index(hidden_nonlinearity), int(wgmma), stream)
     build.check(rc, 'fused_mlp')
     fused_mlp_forward.launches += 1
+    fused_mlp_forward.wgmma_launches += int(wgmma)
+    if not torch.cuda.is_current_stream_capturing():
+        # a captured launch counts at each replay (models/captured.py)
+        tracing.count('fused_mlp.wgmma_launches', int(wgmma))
     return out
 
 
@@ -332,5 +402,7 @@ def fused_mlp_forward(x, ws, bs=None, hidden_nonlinearity='relu'):
     return fused_mlp_plain(x, ws, bs, hidden_nonlinearity)
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and those of them
+#: that took the warpgroup-MMA kernel
 fused_mlp_forward.launches = 0
+fused_mlp_forward.wgmma_launches = 0

@@ -11,8 +11,10 @@ host's phases and for the parts of the steps that replay as CUDA graphs.
     count(name, n=1)  adds n to a counter; counters are always kept, with
                       tracing on or off (they sit on host events that a
                       replay does not repeat: a graph's capture, a
-                      recurrent op's call), but not in a capture's
-                      warm-ups (`quiet`)
+                      recurrent op's call; 'fused_mlp.wgmma_launches'
+                      counts the launches of each replay, as
+                      models/captured.py StepGraph adds them), but not in
+                      a capture's warm-ups (`quiet`)
     enable(on), enabled(), records(), totals(), counters(), reset()
 
 Tracing is off by default, and the benchmark measures it off: a span is

@@ -5,6 +5,7 @@ no CPU or interpret mode). On a machine with one:
 
     python -m pytest tests/test_torch_kernels.py -m cuda -q
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -112,6 +113,95 @@ def test_fused_mlp_kernel_ensemble_grouping(dev):
     want = obs + fused_mlp.fused_mlp_plain(x, model.params['w'],
                                            model.params['b']).mean(0)
     torch.testing.assert_close(got, want, **MLP_TOL)
+
+
+def _launched(x, packed, act='relu'):
+    """One forward, and whether it took the warpgroup-MMA kernel."""
+    before = (fused_mlp.fused_mlp_forward.launches,
+              fused_mlp.fused_mlp_forward.wgmma_launches)
+    out = fused_mlp.fused_mlp_forward(x, packed, None, act)
+    torch.cuda.synchronize()
+    launches = fused_mlp.fused_mlp_forward.launches - before[0]
+    wgmma = fused_mlp.fused_mlp_forward.wgmma_launches - before[1]
+    assert launches == 1 and wgmma in (0, 1)
+    return out, bool(wgmma)
+
+
+def _threshold(dev):
+    return fused_mlp.WGMMA_MIN_ROWS_PER_SM * \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize('act', fused_mlp.ACTIVATIONS)
+def test_fused_mlp_wgmma_kernel_mb_mpc_shape(dev, act):
+    """MB-MPC's launch, 1 x 20,000 rows, 26->512->512->20, takes the
+    warpgroup-MMA kernel, for every activation."""
+    x, ws, bs = _mlp(dev, 1, 20000, (26, 512, 512, 20), seed=20, shared=True)
+    out, wgmma = _launched(x, fused_mlp.pack_weights(ws, bs), act)
+    assert wgmma
+    torch.testing.assert_close(out, fused_mlp.fused_mlp_plain(x, ws, bs, act),
+                               **MLP_TOL)
+
+
+@pytest.mark.parametrize('edge', ['below', 'at', 'past_a_tile', 'ragged'])
+def test_fused_mlp_wgmma_kernel_ragged_rows(dev, edge):
+    """One row either side of the dispatch threshold (a whole number of
+    64-row tiles), one row past a tile, and a ragged count."""
+    thr = _threshold(dev)
+    rows = dict(below=thr - 1, at=thr, past_a_tile=thr + 1,
+                ragged=thr + 64 * 7 + 29)[edge]
+    x, ws, bs = _mlp(dev, 1, rows, (26, 512, 512, 20), seed=rows,
+                     shared=True)
+    out, wgmma = _launched(x, fused_mlp.pack_weights(ws, bs), 'tanh')
+    assert wgmma is (edge != 'below')
+    torch.testing.assert_close(
+        out, fused_mlp.fused_mlp_plain(x, ws, bs, 'tanh'), **MLP_TOL)
+
+
+@pytest.mark.parametrize('g,r,dims', [
+    (1, 20000, (49, 512, 512, 41)),          # MB-MPC on the Ant (N = 48)
+    (1, 20000, (26, 512, 512, 512, 20)),     # three hidden layers
+    (1, 20000, (30, 512, 512, 23)),          # the arm's widths
+    (4, 5000, (26, 512, 512, 20)),           # groups sharing one set
+    (1, 9000, (7, 130, 300, 5)),             # ragged in every layer
+    (1, 9000, (26, 512, 512, 200)),          # output chunks 128 and 72
+    (1, 9000, (130, 256, 20)),               # an input 3 k-tiles deep
+    (1, 9000, (26, 300)),                    # one layer: a pair, then N = 48
+])
+def test_fused_mlp_wgmma_kernel_widths(dev, g, r, dims):
+    x, ws, bs = _mlp(dev, g, r, dims, seed=sum(dims), shared=True)
+    out, wgmma = _launched(x, fused_mlp.pack_weights(ws, bs), 'swish')
+    assert wgmma
+    torch.testing.assert_close(
+        out, fused_mlp.fused_mlp_plain(x, ws, bs, 'swish'), **MLP_TOL)
+
+
+@pytest.mark.parametrize('shared', [False, True])
+def test_fused_mlp_grbal_launch_keeps_the_16_row_kernel(dev, shared):
+    """GrBAL's planner launch, 5 envs x 500 candidates on per-env adapted
+    weights or on the shared set before adaptation, and a wide layer that
+    does not fit the warpgroup-MMA block: the 16-row kernel."""
+    x, ws, bs = _mlp(dev, 5, 500, (26, 512, 512, 512, 20), seed=5,
+                     shared=shared)
+    out, wgmma = _launched(x, fused_mlp.pack_weights(ws, bs))
+    assert not wgmma
+    torch.testing.assert_close(out, fused_mlp.fused_mlp_plain(x, ws, bs),
+                               **MLP_TOL)
+    x, ws, bs = _mlp(dev, 1, _threshold(dev), (26, 1024, 20), seed=6,
+                     shared=True)
+    out, wgmma = _launched(x, fused_mlp.pack_weights(ws, bs))
+    assert not wgmma
+    torch.testing.assert_close(out, fused_mlp.fused_mlp_plain(x, ws, bs),
+                               **MLP_TOL)
+
+
+def test_fused_mlp_wgmma_smem_bytes_match_the_source(dev):
+    lib = fused_mlp._lib()
+    for dims in [(26, 512, 512, 20), (49, 512, 512, 41), (7, 130, 300, 5),
+                 (26, 512, 512, 200), (26, 640, 20), (26, 2048)]:
+        c_dims = (ctypes.c_int * len(dims))(*dims)
+        assert lib.fused_mlp_wgmma_smem_bytes(len(dims) - 1, c_dims) == \
+            fused_mlp.wgmma_smem_bytes(dims)
 
 
 def test_fused_mlp_kernel_refuses_float64(dev):

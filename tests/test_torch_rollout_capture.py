@@ -35,6 +35,7 @@ from learning_to_adapt_torch.policies import MPCController, RNNMPCController
 from learning_to_adapt_torch.samplers import Sampler
 from learning_to_adapt_torch.samplers.rollout import (
     CompiledRollout, make_rollout_fn)
+from learning_to_adapt_torch.utils import tracing
 
 torch.set_num_threads(2)  # the suite runs 6 workers on 8 cores
 
@@ -380,13 +381,14 @@ def test_pack_in_place_keeps_its_addresses():
 # ------------------------------------------------------------- counters
 def test_kernel_counts_round_trip():
     before = captured.kernel_counts()
-    captured.count_kernels(dict(fused_mlp=3, pack=1, jacobi_solve=2,
-                                jacobi_solve_cluster=0, clip_adam=4))
+    captured.count_kernels(dict(fused_mlp=3, fused_mlp_wgmma=2, pack=1,
+                                jacobi_solve=2, jacobi_solve_cluster=0,
+                                clip_adam=4))
     after = captured.kernel_counts()
     captured.count_kernels({k: before[k] - after[k] for k in after})
     assert {k: after[k] - before[k] for k in after} == dict(
-        fused_mlp=3, pack=1, jacobi_solve=2, jacobi_solve_cluster=0,
-        clip_adam=4)
+        fused_mlp=3, fused_mlp_wgmma=2, pack=1, jacobi_solve=2,
+        jacobi_solve_cluster=0, clip_adam=4)
     assert captured.kernel_counts() == before
 
 
@@ -426,6 +428,7 @@ def test_step_graph_counts_replays(monkeypatch):
     def step():
         torch.rand(4, generator=gen)
         fused_mlp.fused_mlp_forward.launches += 10
+        fused_mlp.fused_mlp_forward.wgmma_launches += 10
         fused_mlp.pack_weights.calls += 1
         jacobi.jacobi_solve.launches += 4
         clip_adam.clip_adam_.launches += clip_adam.LAUNCHES_PER_STEP
@@ -436,9 +439,10 @@ def test_step_graph_counts_replays(monkeypatch):
     resets = []
     graph.capture(lambda: resets.append(1))
     assert gc.isenabled()
-    per_step = dict(fused_mlp=10, pack=1, jacobi_solve=4,
-                    jacobi_solve_cluster=0,
+    per_step = dict(fused_mlp=10, fused_mlp_wgmma=10, pack=1,
+                    jacobi_solve=4, jacobi_solve_cluster=0,
                     clip_adam=clip_adam.LAUNCHES_PER_STEP)
+    traced = tracing.counters().get('fused_mlp.wgmma_launches', 0)
     assert captured.kernel_counts() == before and len(resets) == 4
     assert graph.kernels == per_step
     assert graph.warmup_kernels == {k: captured.WARMUP * n
@@ -450,6 +454,8 @@ def test_step_graph_counts_replays(monkeypatch):
     assert graph.replays == 5
     assert captured.kernel_counts() == {k: before[k] + 5 * n
                                         for k, n in per_step.items()}
+    # the tracing counter counts the replays only, not warm-ups or capture
+    assert tracing.counters()['fused_mlp.wgmma_launches'] == traced + 50
     assert torch.equal(gen.get_state(), state)   # a fake replay draws none
     captured.count_kernels({k: -5 * n for k, n in per_step.items()})
 
