@@ -1650,9 +1650,10 @@ class FitEpochs:
     """A model's fit epoch on staged timing data, run two ways: eagerly
     (epoch_fn, from the params and optimizer state it is handed) and
     compiled (the model's CompiledEpoch: its train and validation steps
-    captured once as CUDA graphs and replayed), as fit runs it on the card.
-    args(steps) gives the model's epoch arguments before the generator for
-    `steps` train steps (None: the whole epoch's)."""
+    captured once as CUDA graphs and replayed), as fit runs it: through
+    the shared loop's epoch (models/fitting.py `_fit_epoch`). args(steps)
+    gives the model's epoch counts for `steps` train steps (None: the
+    whole epoch's)."""
 
     def __init__(self, model, train, test, args):
         self.model, self.train, self.test, self.args = (model, train, test,
@@ -1684,9 +1685,8 @@ class FitEpochs:
 
     def captured(self, gen, steps=None):
         """One compiled epoch from the compiled state; returns its losses."""
-        ce = self.compiled
-        return list(self.model._epoch(ce.state, *self.args(steps), gen,
-                                      None, ce.train, ce.valid))
+        return list(self.model._fit_epoch(self.compiled, gen,
+                                          self.args(steps)))
 
     def captured_params(self):
         return self.model._state_out(self.compiled.state, clone=True)[0]
@@ -1884,7 +1884,7 @@ def mb_mpc_fit_phase(model, card):
     128 rows an epoch; validation over the padded 16,384-row test set),
     eager and captured."""
     import torch
-    from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
+    from learning_to_adapt_torch.models.fitting import _bucket_pow2
     from learning_to_adapt_torch.models.mlp import PAD_CHUNK
     gen = torch.Generator(device=model.device)
     gen.manual_seed(8)
@@ -1913,7 +1913,7 @@ def rebal_fit_phase(model, card):
     steps of 10 paths an epoch, each 10 TBPTT chunks of 100 steps;
     validation over the padded 64-path test set), eager and captured."""
     import torch
-    from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
+    from learning_to_adapt_torch.models.fitting import _bucket_pow2
     from learning_to_adapt_torch.models.rnn import PATH_CHUNK
     gen = torch.Generator(device=model.device)
     gen.manual_seed(9)

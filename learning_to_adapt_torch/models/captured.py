@@ -14,19 +14,21 @@ autograd differentiates (requires_grad set once), Adam's count and
 moments, the staged data, the normalizer, the epoch's index table, a
 device step counter and the loss sums. Two callers run those steps:
 
-  eager      the model's epoch_fn builds a state for one epoch around the
-             tensors it is given and calls the steps from Python;
-  compiled   CompiledEpoch holds a state of static buffers for one shape
-             key, captures each step once (StepGraph) and replays it; the
-             fit copies its parameters, optimizer state, normalizer and
-             data in when it starts and copies fresh parameter tensors out
-             when it ends, so nothing a caller holds aliases the buffers
-             that the next fit overwrites.
+  fit        (models/fitting.py) CompiledEpoch holds a state of static
+             buffers for one shape key and runs each step through a
+             StepGraph; the fit copies its parameters, optimizer state,
+             normalizer and data in when it starts and copies fresh
+             parameter tensors out when it ends, so nothing a caller holds
+             aliases the buffers that the next fit overwrites;
+  epoch_fn   the functional epoch the tests hold against the JAX
+             package's: a state for one epoch around the tensors it is
+             given, the steps called from Python.
 
-The rule (`captures`): a fit is compiled on a CUDA device, without a mesh
-or with a mesh over nccl, and eager on the CPU (the tests) and on a gloo
-mesh, whose collectives cannot be captured. Nothing falls back: a capture
-that fails raises from the fit.
+The rule (`captures`), which StepGraph alone applies: a step is captured
+as a CUDA graph and replayed on a CUDA device, without a mesh or with a
+mesh over nccl; on the CPU and on a gloo mesh, whose collectives cannot be
+captured, it is called as a function. So a fit takes one path everywhere.
+Nothing falls back: a capture that fails raises from the fit.
 
 A step reads its random draws from the state's index table at the step
 counter, which it advances: the epoch's window indices, permutation or
@@ -77,8 +79,8 @@ WARMUP = 3  # step calls on a side stream before a capture
 
 
 def captures(device, mesh):
-    """True where a fit runs its compiled epoch: a CUDA device, with no
-    mesh or a mesh over nccl. On the CPU and over gloo it runs eagerly."""
+    """True where a step is captured as a CUDA graph: a CUDA device, with
+    no mesh or a mesh over nccl. On the CPU and over gloo it is called."""
     return torch.device(device).type == 'cuda' and (
         mesh is None or mesh.backend == 'nccl')
 
@@ -195,15 +197,19 @@ class StepGraph:
     call; `replays` counts the calls. `generator`, when given, is the one
     fn draws from (registered with the graph); `pool`, a memory pool the
     graph shares with others that replay one after the other; `name`, the
-    step's span. Captured with tracing on, the graph holds the step's
-    device stamps (`stamps`, their slots), read with the call's. On a CPU
-    device a call runs fn (the tests drive a CompiledEpoch's state
-    handling and a CompiledRollout's that way; fit runs epoch_fn
-    there)."""
+    step's span; `mesh`, the one fn's collectives run on. Captured with
+    tracing on, the graph holds the step's device stamps (`stamps`, their
+    slots), read with the call's. Where `captures` does not hold (the CPU,
+    a gloo mesh) a call runs fn and nothing is captured."""
 
-    def __init__(self, fn, device, generator=None, pool=None, name='step'):
+    def __init__(self, fn, device, generator=None, pool=None, name='step',
+                 mesh=None):
         self.fn = fn
         self.device = torch.device(device)
+        # the device's type first: the tests patch `captures` to build the
+        # compiled rollout on the CPU, where no graph can be made
+        self.capturing = (self.device.type == 'cuda' and
+                          captures(self.device, mesh))
         self.generator = generator
         self.pool = pool
         self.name = name
@@ -268,7 +274,7 @@ class StepGraph:
         tracing.count('graph.capture_s', self.capture_s)
 
     def __call__(self):
-        if self.device.type != 'cuda':
+        if not self.capturing:
             self.fn()
             return
         self.graph.replay()
@@ -283,20 +289,21 @@ class StepGraph:
 
 
 class CompiledEpoch:
-    """One shape key's static fit state and its two steps, captured on
-    the first `prepare` under each tracing state (`graphs`: tracing on at
-    the capture -> (train, valid) StepGraphs on the one state; `train` and
-    `valid` are those of the tracing state now), which loads the state
-    (load(st)) before and, on a capture, again after it. The warm-ups and
-    the capture read the index tables (the state's int64 tensors but its
-    counter) as the state was made, where every row indexes the train and
-    the test data alike; after an epoch a row holds draws for one of
-    them."""
+    """One shape key's static fit state and its two steps (StepGraphs on
+    `mesh`), captured on the first `prepare` under each tracing state
+    where `captures` holds (`graphs`: tracing on at the capture -> (train,
+    valid) StepGraphs on the one state; `train` and `valid` are those of
+    the tracing state now), which loads the state (load(st)) before and,
+    on a capture, again after it. The warm-ups and the capture read the
+    index tables (the state's int64 tensors but its counter) as the state
+    was made, where every row indexes the train and the test data alike;
+    after an epoch a row holds draws for one of them."""
 
-    def __init__(self, state, train_step, valid_step, device):
+    def __init__(self, state, train_step, valid_step, device, mesh=None):
         self.state = state
         self.steps = train_step, valid_step
         self.device = torch.device(device)
+        self.mesh = mesh
         self.graphs = {}
         self.tables = [(v, v.clone()) for v in vars(state).values()
                        if torch.is_tensor(v) and v.dtype == torch.int64
@@ -308,9 +315,9 @@ class CompiledEpoch:
             train_step, valid_step = self.steps
             self.graphs[on] = (
                 StepGraph(lambda: train_step(self.state), self.device,
-                          name='fit.train_step'),
+                          name='fit.train_step', mesh=self.mesh),
                 StepGraph(lambda: valid_step(self.state), self.device,
-                          name='fit.valid_step'))
+                          name='fit.valid_step', mesh=self.mesh))
         return self.graphs[on]
 
     @property
@@ -331,9 +338,10 @@ class CompiledEpoch:
                    for g in pair)
 
     def prepare(self, load):
-        """load(state), capturing both steps first if they are not yet."""
+        """load(state), capturing both steps first where they are to be
+        captured and are not yet."""
         load(self.state)
-        if self.captured or self.train.device.type != 'cuda':
+        if self.captured or not self.train.capturing:
             return
 
         def reset():

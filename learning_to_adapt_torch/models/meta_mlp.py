@@ -19,12 +19,10 @@ window generator), so every fit's split and aggregated buffers equal the
 JAX package's.
 
 The train step and the validation step are functions of a fit state that
-they update in place (models/captured.py). On a CUDA device, without a
-mesh or over nccl, the fit runs the compiled epoch: each step captured
-once as a CUDA graph per shape key (`compiled_epoch`, cached in
-_epoch_cache as the JAX package caches its jitted epoch) and replayed.
-On the CPU and over gloo it runs epoch_fn, which calls the same steps
-eagerly.
+they update in place (models/captured.py); the fit (models/fitting.py)
+runs them on a compiled epoch per shape key (`compiled_epoch`, cached in
+_epoch_cache as the JAX package caches its jitted epoch), captured as CUDA
+graphs and replayed where captured.captures holds.
 
 With `model.mesh` set (parallel/mesh.py) every rank holds the whole host
 dataset (the sampler gathered it), so the split, the normalizer and the
@@ -42,26 +40,14 @@ import torch
 
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.models import captured, core
-from learning_to_adapt_torch.models.normalizer import (
-    Normalizer, normalizer_from_numpy, normalizer_to_numpy)
+from learning_to_adapt_torch.models.fitting import FitMixin, _bucket_pow2
 from learning_to_adapt_torch.models.optim import (
-    ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
-    state_from_jax_numpy, tree_leaves, tree_to_numpy,
-    tree_unflatten)
+    state_from_jax_numpy, tree_leaves)
 from learning_to_adapt_torch.ops.fused_mlp import PackedMLP, fused_mlp_forward
 from learning_to_adapt_torch.parallel import mesh as par_mesh
 from learning_to_adapt_torch.utils import tracing
 
 PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
-
-
-def _bucket_pow2(n):
-    """Round a step count to the nearest power of two (>= 1), as the JAX
-    package does to bound its recompiles; kept so that an epoch runs the
-    same number of steps."""
-    if n <= 1:
-        return 1
-    return int(2 ** round(np.log2(n)))
 
 
 def _leaves(tree):
@@ -72,7 +58,12 @@ def _tree(leaves, n_w):
     return {'w': list(leaves[:n_w]), 'b': list(leaves[n_w:])}
 
 
-class MetaMLPDynamicsModel:
+class MetaMLPDynamicsModel(FitMixin):
+    _losses = ('post', 'pre', 'valid')
+    _shown = ('pre', 'post', 'valid')
+    _logged = (('Pre-Loss', 'pre'), ('Post-Loss', 'post'))
+    _result = 'post'
+
     def __init__(self, name, env, hidden_sizes=(512, 512), meta_batch_size=10,
                  hidden_nonlinearity='relu', output_nonlinearity=None,
                  batch_size=500, learning_rate=0.001, inner_learning_rate=0.1,
@@ -100,19 +91,8 @@ class MetaMLPDynamicsModel:
         self.params = core.init_mlp(gen, self.obs_dim + self.act_dim,
                                     self.hidden_sizes, self.obs_dim, dtype,
                                     self.device)
-        # global-norm clipping protects the fit from occasional outlier
-        # transitions (crash states), as in the JAX package
-        self.optimizer = ClipAdam(learning_rate, max_norm=100.0)
-        self.opt_state = self.optimizer.init(self.params)
-        self.normalizer = Normalizer.init(self.obs_dim, self.act_dim, dtype,
-                                          self.device)
-
-        self._train = None  # dict of numpy [P, T, d]
-        self._test = None
-        self._rng = np.random.RandomState(seed + 1)
+        self._init_fit(learning_rate, seed)
         self._adapted_params = None  # params with a leading env axis, or None
-        self.mesh = None  # parallel/mesh.py: the fit's paths shard over 'env'
-        self._epoch_cache = {}  # shape key -> captured.CompiledEpoch
 
     # ----------------------------------------------------------- core math
     def _forward(self, params, x):
@@ -193,105 +173,17 @@ class MetaMLPDynamicsModel:
                                       data['delta']], axis=-1)
         return par_mesh.stage_fit_data(self, out)
 
-    @tracing.calls('fit.call')
-    def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
-            valid_split_ratio=None, rolling_average_persitency=None,
-            verbose=False, log_tabular=False, logger=None):
-        if obs.ndim != 3 or obs.shape[2] != self.obs_dim:
-            raise ValueError(f'obs must be [paths, T, {self.obs_dim}], got '
-                             f'{obs.shape}')
-        if act.ndim != 3 or act.shape[2] != self.act_dim:
-            raise ValueError(f'act must be [paths, T, {self.act_dim}], got '
-                             f'{act.shape}')
-        obs = np.asarray(obs, np.float32)
-        act = np.asarray(act, np.float32)
-        delta = np.asarray(obs_next, np.float32) - obs
-        if valid_split_ratio is None:
-            valid_split_ratio = self.valid_split_ratio
-        if rolling_average_persitency is None:
-            rolling_average_persitency = self.rolling_average_persitency
-
-        if self.normalize_input and (compute_normalization or
-                                     self._train is None):
-            with tracing.span('fit.normalize'):
-                self.normalizer = Normalizer.fit(
-                    *(torch.as_tensor(a, device=self.device)
-                      for a in (obs, act, delta)))
-
-        with tracing.span('fit.stage'):
-            # split along the path axis, aggregate across iterations
-            n_paths = obs.shape[0]
-            idx = self._rng.permutation(n_paths)
-            split = max(int(n_paths * (1 - valid_split_ratio)), 1)
-            tr, te = idx[:split], idx[split:] if split < n_paths else idx[-1:]
-            new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
-            new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
-            if self._train is None:
-                self._train, self._test = new_tr, new_te
-            else:
-                self._train = {k: np.concatenate([self._train[k], new_tr[k]])
-                               for k in new_tr}
-                self._test = {k: np.concatenate([self._test[k], new_te[k]])
-                              for k in new_te}
-
-            p_tr = self._train['obs'].shape[0]
-            p_te = self._test['obs'].shape[0]
-            t_len = self._train['obs'].shape[1]
-            cap_tr, cap_te, steps_per_epoch, steps_test = self._fit_shapes(
-                p_tr, p_te, t_len)
-            par_mesh.stage_model_state(self)
-            train = self.stage(self._train, cap_tr)
-            test = self.stage(self._test, cap_te)
-        compiled = None
-        with tracing.span('fit.prepare'):
-            if captured.captures(self.device, self.mesh):
-                compiled = self.compiled_epoch(train, test)
-                compiled.prepare(lambda st: self._load_state(
-                    st, self.params, self.opt_state, self.normalizer, train,
-                    test))
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(int(self._rng.randint(1 << 31)))
-        valid_avg = valid_avg_prev = None
-        epoch = 0
-        pre_loss = post_loss = float('nan')
-        for epoch in range(epochs):
-            if compiled is None:
-                (self.params, self.opt_state, post, pre,
-                 valid) = self.epoch_fn(self.params, self.opt_state,
-                                        self.normalizer, train, test, p_tr,
-                                        p_te, steps_per_epoch, steps_test,
-                                        generator)
-            else:
-                post, pre, valid = self._epoch(
-                    compiled.state, p_tr, p_te, steps_per_epoch, steps_test,
-                    generator, None, compiled.train, compiled.valid)
-            # the epoch's one read of device values, alike on every rank
-            with tracing.span('fit.read'):
-                post_loss, pre_loss, valid_loss = torch.stack(
-                    [post, pre, valid]).tolist()
-            if valid_avg is None:
-                valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
-                    else valid_loss / 1.5
-                valid_avg_prev = 2 * valid_loss if valid_loss >= 0 \
-                    else valid_loss / 2
-            valid_avg = (rolling_average_persitency * valid_avg +
-                         (1 - rolling_average_persitency) * valid_loss)
-            if verbose and logger is not None:
-                logger.log(f'Epoch {epoch} pre {pre_loss:.5f} '
-                           f'post {post_loss:.5f} '
-                           f'valid {valid_loss:.5f} avg {valid_avg:.5f}')
-            if valid_avg_prev < valid_avg or epoch == epochs - 1:
-                break
-            valid_avg_prev = valid_avg
-        if compiled is not None:
-            with tracing.span('fit.state_out'):
-                self.params, self.opt_state = self._state_out(
-                    compiled.state, clone=True)
-        if log_tabular and logger is not None:
-            logger.logkv('Epochs', epoch)
-            logger.logkv('Pre-Loss', pre_loss)
-            logger.logkv('Post-Loss', post_loss)
-        return dict(epochs=epoch, post_loss=post_loss)
+    def _stage_fit(self):
+        """(train, test, `_epoch` counts) of the aggregated paths: each
+        staged at its PATH_CHUNK capacity; the real path counts and the
+        epoch's train and validation steps."""
+        p_tr = self._train['obs'].shape[0]
+        p_te = self._test['obs'].shape[0]
+        cap_tr, cap_te, steps, steps_test = self._fit_shapes(
+            p_tr, p_te, self._train['obs'].shape[1])
+        return (self.stage(self._train, cap_tr),
+                self.stage(self._test, cap_te), (p_tr, p_te, steps,
+                                                 steps_test))
 
     # ------------------------------------------------ the fit's steps
     def _fit_state(self, params, opt_state, norm, train, test, rows,
@@ -316,39 +208,16 @@ class MetaMLPDynamicsModel:
                             device=dev),
             span=torch.arange(-self.batch_size, self.batch_size, device=dev))
 
-    _step_layout = staticmethod(tree_leaves)  # the state's leaf order
-
-    def _from_step_layout(self, leaves):
-        return tree_unflatten(self.params, leaves)
-
-    def _load_state(self, st, params, opt_state, norm, train, test):
-        captured.load(st, self._step_layout, params, opt_state, norm, train,
-                      test)
-
-    def _state_out(self, st, clone):
-        """(params, opt_state) of a fit state: copies (clone) where the
-        state lives on, else detached views."""
-        return captured.state_out(st, self._from_step_layout, clone)
-
-    def compiled_epoch(self, train, test):
-        """The CompiledEpoch of staged train/test data's shape key
-        (capacities, path length, meta batch and batch size; as in the
-        JAX package's key, not the real path counts), made on first use:
-        its index tables hold the most steps any fit of these capacities
-        takes."""
+    def _epoch_key(self, train, test):
+        """(shape key: the capacities, path length, meta batch and batch
+        size; the index tables' rows: the most train and validation steps
+        a fit of these capacities takes)."""
         key = (train.shape[0], test.shape[0], train.shape[1],
                self.meta_batch_size, self.batch_size)
-        if key not in self._epoch_cache:
-            n_env = 1 if self.mesh is None else self.mesh.shape['env']
-            _, _, most, most_test = self._fit_shapes(
-                train.shape[0] * n_env, test.shape[0] * n_env,
-                train.shape[1])
-            st = self._fit_state(self.params, self.opt_state,
-                                 self.normalizer, train, test,
-                                 most + most_test, static=True)
-            self._epoch_cache[key] = captured.CompiledEpoch(
-                st, self._train_step, self._valid_step, self.device)
-        return self._epoch_cache[key]
+        _, _, most, most_test = self._fit_shapes(
+            train.shape[0] * self._n_env, test.shape[0] * self._n_env,
+            train.shape[1])
+        return key, most + most_test
 
     def _window(self, st, data):
         """The meta batch of windows at the step counter's row of the
@@ -433,7 +302,6 @@ class MetaMLPDynamicsModel:
         (p_tr, o_tr), (p_te, o_te) = draw(n_tr, steps), draw(n_te, steps_test)
         return torch.cat([p_tr, p_te]), torch.cat([o_tr, o_te])
 
-    @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_tr, n_te,
                  steps_per_epoch, steps_test, generator, windows=None):
         """One epoch, run eagerly: steps_per_epoch meta-train steps
@@ -450,13 +318,10 @@ class MetaMLPDynamicsModel:
         'fit.valid_step'. With a mesh, one all_reduce a
         step assembles its windows and one more, at the end, takes the
         losses' max over the ranks."""
-        st = self._fit_state(params, opt_state, norm, train, test,
-                             steps_per_epoch + steps_test)
-        losses = self._epoch(st, n_tr, n_te, steps_per_epoch, steps_test,
-                             generator, windows,
-                             lambda: self._train_step(st),
-                             lambda: self._valid_step(st))
-        return (*self._state_out(st, clone=False), *losses)
+        return self._eager_epoch(
+            params, opt_state, norm, train, test,
+            steps_per_epoch + steps_test,
+            (n_tr, n_te, steps_per_epoch, steps_test), generator, windows)
 
     # ------------------------------------------------------------- adapt
     def adapt_fn(self, params, norm, obs, act, obs_next):
@@ -530,32 +395,6 @@ class MetaMLPDynamicsModel:
     @property
     def adapted(self):
         return self._adapted_params is not None
-
-    # ------------------------------------------------------------- state
-    def state_dict(self, include_data=False):
-        """numpy copies of params, optimizer state and normalizer; with
-        include_data also the dataset buffers and the split/shuffle RNG
-        (the train/valid composition of every future fit depends on it),
-        for full-fidelity resume."""
-        sd = dict(params=tree_to_numpy(self.params),
-                  opt_state=adam_state_to_numpy(self.opt_state),
-                  normalizer=normalizer_to_numpy(self.normalizer))
-        if include_data:
-            sd.update(train=self._train, test=self._test,
-                      rng_state=self._rng.get_state())
-        return sd
-
-    def load_state_dict(self, sd):
-        dev = self.device
-        self.params = core.params_from_numpy(sd['params'], dev, self.dtype)
-        self.opt_state = adam_state_from_numpy(sd['opt_state'], dev,
-                                               self.dtype)
-        self.normalizer = normalizer_from_numpy(sd['normalizer'], dev,
-                                                self.dtype)
-        self._train = sd.get('train')
-        self._test = sd.get('test')
-        if sd.get('rng_state') is not None:
-            self._rng.set_state(sd['rng_state'])
 
 
 #: the JAX package's MetaMLPDynamicsModel.state_dict(...) (after

@@ -24,12 +24,11 @@ permutation per fit for the split and one draw that seeds the device
 generator of the epochs' permutations.
 
 The train step and the validation step are functions of a fit state that
-they update in place (models/captured.py). On a CUDA device, without a
-mesh or over nccl, the fit runs the compiled epoch: each step captured
-once as a CUDA graph per shape key (`compiled_epoch`, cached in
-_epoch_cache as the JAX package caches its jitted epoch) and replayed,
-the epoch's permutation drawn eagerly into the step's index table. On the
-CPU and over gloo it runs epoch_fn, which calls the same steps eagerly.
+they update in place (models/captured.py); the fit (models/fitting.py)
+runs them on a compiled epoch per shape key (`compiled_epoch`, cached in
+_epoch_cache as the JAX package caches its jitted epoch), captured as CUDA
+graphs and replayed where captured.captures holds, the epoch's permutation
+drawn eagerly into the step's index table.
 
 With `model.mesh` set (parallel/mesh.py) the fit is data parallel: every
 rank holds the whole host dataset (the sampler gathered it) and draws the
@@ -49,13 +48,9 @@ import torch
 
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.models import captured, core
-from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
-from learning_to_adapt_torch.models.normalizer import (
-    Normalizer, normalizer_from_numpy, normalizer_to_numpy)
+from learning_to_adapt_torch.models.fitting import FitMixin, _bucket_pow2
 from learning_to_adapt_torch.models.optim import (
-    ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
-    state_from_jax_numpy, tree_from_numpy, tree_leaves,
-    tree_to_numpy, tree_unflatten)
+    state_from_jax_numpy, tree_leaves)
 from learning_to_adapt_torch.ops.fused_mlp import (
     PackedMLP, fused_mlp_forward, pack_weights)
 from learning_to_adapt_torch.parallel import mesh as par_mesh
@@ -79,7 +74,10 @@ def _pad_rows(arrs, count, chunk=PAD_CHUNK):
     return out, w
 
 
-class MLPDynamicsModel:
+class MLPDynamicsModel(FitMixin):
+    _layout = ('rows',)
+    _logged = (('TrainLoss', 'train'), ('ValidLoss', 'avg'))
+
     def __init__(self, name, env, hidden_sizes=(512, 512),
                  hidden_nonlinearity='relu', output_nonlinearity=None,
                  batch_size=500, learning_rate=0.001, normalize_input=True,
@@ -108,116 +106,14 @@ class MLPDynamicsModel:
         self.params = members[0] if n_members == 1 else {
             k: [torch.stack(ps) for ps in zip(*(m_[k] for m_ in members))]
             for k in ('w', 'b')}
-        # global-norm clipping protects the fit from occasional outlier
-        # transitions (crash states), as in the JAX package
-        self.optimizer = ClipAdam(learning_rate, max_norm=100.0)
-        self.opt_state = self.optimizer.init(self.params)
-        self.normalizer = Normalizer.init(self.obs_dim, self.act_dim, dtype,
-                                          self.device)
-
-        self._train = None  # dict of numpy [rows, d], raw
-        self._test = None
-        self._rng = np.random.RandomState(seed + 1)
-        self.mesh = None  # parallel/mesh.py: the fit's rows shard over 'env'
-        self._epoch_cache = {}  # shape key -> captured.CompiledEpoch
+        self._init_fit(learning_rate, seed)
 
     # ------------------------------------------------------------------ fit
-    @tracing.calls('fit.call')
-    def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
-            valid_split_ratio=None, rolling_average_persitency=None,
-            verbose=False, log_tabular=False, logger=None):
-        if obs.ndim != 2 or obs.shape[1] != self.obs_dim:
-            raise ValueError(f'obs must be [rows, {self.obs_dim}], got '
-                             f'{obs.shape}')
-        if act.ndim != 2 or act.shape[1] != self.act_dim:
-            raise ValueError(f'act must be [rows, {self.act_dim}], got '
-                             f'{act.shape}')
-        obs = np.asarray(obs, np.float32)
-        act = np.asarray(act, np.float32)
-        delta = np.asarray(obs_next, np.float32) - obs
-        if valid_split_ratio is None:
-            valid_split_ratio = self.valid_split_ratio
-        if rolling_average_persitency is None:
-            rolling_average_persitency = self.rolling_average_persitency
-
-        # normalization stats from this iteration's fresh data
-        if self.normalize_input and (compute_normalization or
-                                     self._train is None):
-            with tracing.span('fit.normalize'):
-                self.normalizer = Normalizer.fit(
-                    *(torch.as_tensor(a, device=self.device)
-                      for a in (obs, act, delta)))
-
-        with tracing.span('fit.stage'):
-            # random train/valid split, then append to the aggregated datasets
-            n = obs.shape[0]
-            idx = self._rng.permutation(n)
-            split = int(n * (1 - valid_split_ratio))
-            tr, te = idx[:split], idx[split:]
-            new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
-            new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
-            if self._train is None:
-                self._train, self._test = new_tr, new_te
-            else:
-                self._train = {k: np.concatenate([self._train[k], new_tr[k]])
-                               for k in new_tr}
-                self._test = {k: np.concatenate([self._test[k], new_te[k]])
-                              for k in new_te}
-
-            par_mesh.stage_model_state(self)
-            train, test = self.stage(self._train), self.stage(self._test)
-            n_train = self._train['obs'].shape[0]
-            n_batches = _bucket_pow2(max(n_train // self.batch_size, 1))
-        compiled = None
-        with tracing.span('fit.prepare'):
-            if captured.captures(self.device, self.mesh):
-                compiled = self.compiled_epoch(train, test)
-                compiled.prepare(lambda st: self._load_state(
-                    st, self.params, self.opt_state, self.normalizer, train,
-                    test))
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(int(self._rng.randint(1 << 31)))
-
-        valid_avg = valid_avg_prev = None
-        epoch = 0
-        train_loss = float('nan')
-        for epoch in range(epochs):
-            if compiled is None:
-                (self.params, self.opt_state, train_t,
-                 valid_t) = self.epoch_fn(self.params, self.opt_state,
-                                          self.normalizer, train, test,
-                                          n_batches, generator)
-            else:
-                train_t, valid_t = self._epoch(
-                    compiled.state, n_batches, generator, None,
-                    compiled.train, compiled.valid)
-            # the epoch's one read of device values, alike on every rank
-            with tracing.span('fit.read'):
-                train_loss, valid_loss = torch.stack(
-                    [train_t, valid_t]).tolist()
-            if valid_avg is None:
-                # seeded above the first value so that epoch 0 never stops
-                valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
-                    else valid_loss / 1.5
-                valid_avg_prev = 2 * valid_loss if valid_loss >= 0 \
-                    else valid_loss / 2
-            valid_avg = (rolling_average_persitency * valid_avg +
-                         (1 - rolling_average_persitency) * valid_loss)
-            if verbose and logger is not None:
-                logger.log(f'Epoch {epoch} train {train_loss:.5f} '
-                           f'valid {valid_loss:.5f} avg {valid_avg:.5f}')
-            if valid_avg_prev < valid_avg or epoch == epochs - 1:
-                break
-            valid_avg_prev = valid_avg
-        if compiled is not None:
-            with tracing.span('fit.state_out'):
-                self.params, self.opt_state = self._state_out(
-                    compiled.state, clone=True)
-        if log_tabular and logger is not None:
-            logger.logkv('Epochs', epoch)
-            logger.logkv('TrainLoss', train_loss)
-            logger.logkv('ValidLoss', float(valid_avg))
-        return dict(epochs=epoch, train_loss=train_loss)
+    def _split_indices(self, idx, ratio):
+        """(train, test) of a permutation of the rows: the first
+        int(n * (1 - ratio)) train, the rest test."""
+        split = int(idx.shape[0] * (1 - ratio))
+        return idx[:split], idx[split:]
 
     def stage(self, data):
         """Rows dict(obs, act, delta) of numpy [rows, d] -> (rows (cap,
@@ -228,6 +124,13 @@ class MLPDynamicsModel:
         (rows,), w = _pad_rows([np.concatenate(
             [data['obs'], data['act'], data['delta']], axis=-1)], count)
         return par_mesh.stage_fit_data(self, (rows, w))
+
+    def _stage_fit(self):
+        """(train, test, `_epoch` counts) of the aggregated rows: each
+        staged at its PAD_CHUNK capacity; the epoch's minibatches."""
+        n_batches = _bucket_pow2(max(
+            self._train['obs'].shape[0] // self.batch_size, 1))
+        return self.stage(self._train), self.stage(self._test), (n_batches,)
 
     def _forward_normalized(self, params, norm, obs, act):
         """f32 forward in normalized space: the normalized delta, with a
@@ -270,36 +173,13 @@ class MLPDynamicsModel:
             sel=torch.zeros((rows, self.batch_size), dtype=torch.int64,
                             device=train[0].device))
 
-    _step_layout = staticmethod(tree_leaves)  # the state's leaf order
-
-    def _from_step_layout(self, leaves):
-        return tree_unflatten(self.params, leaves)
-
-    def _load_state(self, st, params, opt_state, norm, train, test):
-        captured.load(st, self._step_layout, params, opt_state, norm, train,
-                      test)
-
-    def _state_out(self, st, clone):
-        """(params, opt_state) of a fit state: copies (clone) where the
-        state lives on, else detached views."""
-        return captured.state_out(st, self._from_step_layout, clone)
-
-    def compiled_epoch(self, train, test):
-        """The CompiledEpoch of staged train/test data's shape key (the
-        train and test capacities and the batch size), made on first use:
-        its index table holds the most minibatches any fit of this train
-        capacity takes."""
+    def _epoch_key(self, train, test):
+        """(shape key: the train and test capacities and the batch size;
+        the index table's rows: the most minibatches any fit of this train
+        capacity takes)."""
         rows = train[0].shape[0]
-        key = (rows, test[0].shape[0], self.batch_size)
-        if key not in self._epoch_cache:
-            n_env = 1 if self.mesh is None else self.mesh.shape['env']
-            most = _bucket_pow2(max(rows * n_env // self.batch_size, 1))
-            st = self._fit_state(self.params, self.opt_state,
-                                 self.normalizer, train, test, most,
-                                 static=True)
-            self._epoch_cache[key] = captured.CompiledEpoch(
-                st, self._train_step, self._valid_step, self.device)
-        return self._epoch_cache[key]
+        return (rows, test[0].shape[0], self.batch_size), _bucket_pow2(
+            max(rows * self._n_env // self.batch_size, 1))
 
     def _train_step(self, st):
         """One train step in place: the minibatch at the step counter's row
@@ -346,8 +226,7 @@ class MLPDynamicsModel:
         with tracing.span('fit.draws'):
             if perm is None:
                 rows = st.train[0]
-                cap = rows.shape[0] * (1 if self.mesh is None
-                                       else self.mesh.shape['env'])
+                cap = rows.shape[0] * self._n_env
                 perm = torch.randperm(cap, generator=generator,
                                       device=rows.device)
             bs = self.batch_size
@@ -356,7 +235,6 @@ class MLPDynamicsModel:
         captured.run_epoch(st, n_batches, 1, train_step, valid_step)
         return st.sums[0] / n_batches, st.sums[1].clone()
 
-    @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_batches,
                  generator, perm=None):
         """One epoch, run eagerly: n_batches minibatches of batch_size rows
@@ -369,12 +247,8 @@ class MLPDynamicsModel:
         tensors; nothing here waits for the device. The steps are the
         compiled epoch's (`_train_step`, `_valid_step`) on a state made
         for this epoch, the spans 'fit.train_step' and 'fit.valid_step'."""
-        st = self._fit_state(params, opt_state, norm, train, test,
-                             n_batches)
-        losses = self._epoch(st, n_batches, generator, perm,
-                             lambda: self._train_step(st),
-                             lambda: self._valid_step(st))
-        return (*self._state_out(st, clone=False), *losses)
+        return self._eager_epoch(params, opt_state, norm, train, test,
+                                 n_batches, (n_batches,), generator, perm)
 
     # -------------------------------------------------------------- predict
     def _grouped(self, params):
@@ -426,31 +300,6 @@ class MLPDynamicsModel:
     @property
     def recurrent(self):
         return False
-
-    # ---------------------------------------------------------------- state
-    def state_dict(self, include_data=False):
-        """numpy copies of params, optimizer state and normalizer; with
-        include_data also the dataset buffers and the split/shuffle RNG,
-        for full-fidelity resume."""
-        sd = dict(params=tree_to_numpy(self.params),
-                  opt_state=adam_state_to_numpy(self.opt_state),
-                  normalizer=normalizer_to_numpy(self.normalizer))
-        if include_data:
-            sd.update(train=self._train, test=self._test,
-                      rng_state=self._rng.get_state())
-        return sd
-
-    def load_state_dict(self, sd):
-        dev = self.device
-        self.params = tree_from_numpy(sd['params'], dev, self.dtype)
-        self.opt_state = adam_state_from_numpy(sd['opt_state'], dev,
-                                               self.dtype)
-        self.normalizer = normalizer_from_numpy(sd['normalizer'], dev,
-                                                self.dtype)
-        self._train = sd.get('train')
-        self._test = sd.get('test')
-        if sd.get('rng_state') is not None:
-            self._rng.set_state(sd['rng_state'])
 
 
 #: the JAX package's MLPDynamicsModel.state_dict(...) (after

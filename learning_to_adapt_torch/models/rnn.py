@@ -28,13 +28,11 @@ the device generator of the path indices.
 The train step and the validation step are functions of a fit state that
 they update in place (models/captured.py), which holds each layer's
 weights in cuDNN's layout, one buffer a layer (`_layer_buffers`), mapped
-from and to the JAX-layout tree when a fit starts and ends. On a CUDA
-device, without a mesh or over nccl, the fit runs the compiled epoch: each
-step captured once as a CUDA graph per shape key (`compiled_epoch`, cached
-in _epoch_cache as the JAX package caches its jitted epoch) and replayed,
-the epoch's path indices drawn eagerly into the step's index table. On
-the CPU and over gloo it runs epoch_fn, which calls the same steps
-eagerly.
+from and to the JAX-layout tree when a fit starts and ends. The fit
+(models/fitting.py) runs them on a compiled epoch per shape key
+(`compiled_epoch`, cached in _epoch_cache as the JAX package caches its
+jitted epoch), captured as CUDA graphs and replayed where captured.captures
+holds, the epoch's path indices drawn eagerly into the step's index table.
 
 Spans and counters (utils/tracing.py): each call of the recurrent layer
 op is the span 'rnn.seq' (one a layer and TBPTT chunk in a train step,
@@ -43,8 +41,8 @@ validation step), stamped on the device inside the captured steps as the
 'fit.*' spans are; with tracing off it is the record_function range it
 would be and the captured graphs launch nothing more. The counter
 'rnn.seq_steps' adds the time steps of each such call where the host
-issues it: every call on the eager paths, and on the card each capture's
-calls once (its warm-ups count nothing), not the replays.
+makes it: every call of a step that is not captured, and on the card each
+capture's calls once (its warm-ups count nothing), not the replays.
 
 With `model.mesh` set (parallel/mesh.py) the fit is data parallel: every
 rank holds the whole host dataset (the sampler gathered it) and draws the
@@ -63,20 +61,16 @@ import torch
 
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.models import captured, core
-from learning_to_adapt_torch.models.meta_mlp import _bucket_pow2
-from learning_to_adapt_torch.models.normalizer import (
-    Normalizer, normalizer_from_numpy, normalizer_to_numpy)
+from learning_to_adapt_torch.models.fitting import FitMixin, _bucket_pow2
 from learning_to_adapt_torch.models.optim import (
-    ClipAdam, adam_state_from_numpy, adam_state_to_numpy,
-    state_from_jax_numpy, tree_from_numpy, tree_leaves, tree_map,
-    tree_to_numpy, tree_unflatten)
+    state_from_jax_numpy, tree_leaves, tree_map, tree_unflatten)
 from learning_to_adapt_torch.parallel import mesh as par_mesh
 from learning_to_adapt_torch.utils import tracing
 
 PATH_CHUNK = 64  # staged dataset capacity grows in path-count chunks
 
 
-class RNNDynamicsModel:
+class RNNDynamicsModel(FitMixin):
     def __init__(self, name, env, hidden_sizes=(256,), cell_type='lstm',
                  learning_rate=0.001, batch_size=10, backprop_steps=50,
                  normalize_input=True, output_nonlinearity=None,
@@ -112,18 +106,7 @@ class RNNDynamicsModel:
             in_dim = h
         out = core.init_mlp(gen, in_dim, (), self.obs_dim, dtype, self.device)
         self.params = {'cells': cells, 'out': out}
-        # global-norm clipping protects the fit from occasional outlier
-        # transitions (crash states), as in the JAX package
-        self.optimizer = ClipAdam(learning_rate, max_norm=100.0)
-        self.opt_state = self.optimizer.init(self.params)
-        self.normalizer = Normalizer.init(self.obs_dim, self.act_dim, dtype,
-                                          self.device)
-
-        self._train = None  # dict of numpy [P, T, d], raw
-        self._test = None
-        self._rng = np.random.RandomState(seed + 1)
-        self.mesh = None  # parallel/mesh.py: the fit's paths shard over 'env'
-        self._epoch_cache = {}  # shape key -> captured.CompiledEpoch
+        self._init_fit(learning_rate, seed)
 
     # ------------------------------------------------------------- forward
     def get_initial_hidden(self, batch_size):
@@ -201,97 +184,6 @@ class RNNDynamicsModel:
         return out.cpu().numpy(), hidden
 
     # ------------------------------------------------------------------ fit
-    @tracing.calls('fit.call')
-    def fit(self, obs, act, obs_next, epochs=1000, compute_normalization=True,
-            valid_split_ratio=None, rolling_average_persitency=None,
-            verbose=False, log_tabular=False, logger=None):
-        if obs.ndim != 3 or obs.shape[2] != self.obs_dim:
-            raise ValueError(f'obs must be [paths, T, {self.obs_dim}], got '
-                             f'{obs.shape}')
-        obs = np.asarray(obs, np.float32)
-        act = np.asarray(act, np.float32)
-        delta = np.asarray(obs_next, np.float32) - obs
-        if valid_split_ratio is None:
-            valid_split_ratio = self.valid_split_ratio
-        if rolling_average_persitency is None:
-            rolling_average_persitency = self.rolling_average_persitency
-
-        if self.normalize_input and (compute_normalization or
-                                     self._train is None):
-            with tracing.span('fit.normalize'):
-                self.normalizer = Normalizer.fit(
-                    *(torch.as_tensor(a, device=self.device)
-                      for a in (obs, act, delta)))
-
-        with tracing.span('fit.stage'):
-            n_paths = obs.shape[0]
-            idx = self._rng.permutation(n_paths)
-            split = max(int(n_paths * (1 - valid_split_ratio)), 1)
-            tr, te = idx[:split], idx[split:] if split < n_paths else idx[-1:]
-            new_tr = dict(obs=obs[tr], act=act[tr], delta=delta[tr])
-            new_te = dict(obs=obs[te], act=act[te], delta=delta[te])
-            if self._train is None:
-                self._train, self._test = new_tr, new_te
-            else:
-                self._train = {k: np.concatenate([self._train[k], new_tr[k]])
-                               for k in new_tr}
-                self._test = {k: np.concatenate([self._test[k], new_te[k]])
-                              for k in new_te}
-
-            p_tr = self._train['obs'].shape[0]
-            par_mesh.stage_model_state(self)
-            train, _ = self.stage(self._train)
-            test = self.stage(self._test)
-            n_batches = _bucket_pow2(max(p_tr // self.batch_size, 1))
-        compiled = None
-        with tracing.span('fit.prepare'):
-            if captured.captures(self.device, self.mesh):
-                compiled = self.compiled_epoch(train, test)
-                compiled.prepare(lambda st: self._load_state(
-                    st, self.params, self.opt_state, self.normalizer, train,
-                    test))
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(int(self._rng.randint(1 << 31)))
-
-        valid_avg = valid_avg_prev = None
-        epoch = 0
-        train_loss = float('nan')
-        for epoch in range(epochs):
-            if compiled is None:
-                (self.params, self.opt_state, train_t,
-                 valid_t) = self.epoch_fn(self.params, self.opt_state,
-                                          self.normalizer, train, test, p_tr,
-                                          n_batches, generator)
-            else:
-                train_t, valid_t = self._epoch(
-                    compiled.state, p_tr, n_batches, generator, None,
-                    compiled.train, compiled.valid)
-            # the epoch's one read of device values, alike on every rank
-            with tracing.span('fit.read'):
-                train_loss, valid_loss = torch.stack(
-                    [train_t, valid_t]).tolist()
-            if valid_avg is None:
-                valid_avg = 1.5 * valid_loss if valid_loss >= 0 \
-                    else valid_loss / 1.5
-                valid_avg_prev = 2 * valid_loss if valid_loss >= 0 \
-                    else valid_loss / 2
-            valid_avg = (rolling_average_persitency * valid_avg +
-                         (1 - rolling_average_persitency) * valid_loss)
-            if verbose and logger is not None:
-                logger.log(f'Epoch {epoch} train {train_loss:.5f} '
-                           f'valid {valid_loss:.5f} avg {valid_avg:.5f}')
-            if valid_avg_prev < valid_avg or epoch == epochs - 1:
-                break
-            valid_avg_prev = valid_avg
-        if compiled is not None:
-            with tracing.span('fit.state_out'):
-                self.params, self.opt_state = self._state_out(
-                    compiled.state, clone=True)
-        if log_tabular and logger is not None:
-            logger.logkv('Epochs', epoch)
-            logger.logkv('TrainLoss', train_loss)
-        return dict(epochs=epoch, train_loss=train_loss)
-
     def stage(self, data):
         """Paths dict(obs, act, delta) of numpy [P, T, d] -> (paths (cap, T,
         obs+act+obs) f32, weights (cap,)) on the device, zero-padded to a
@@ -306,6 +198,15 @@ class RNNDynamicsModel:
         w = np.zeros((cap,), np.float32)
         w[:count] = 1.0
         return par_mesh.stage_fit_data(self, (rows, w))
+
+    def _stage_fit(self):
+        """(train paths, test (paths, weights), `_epoch` counts) of the
+        aggregated paths, each staged at its PATH_CHUNK capacity; the real
+        train path count and the epoch's steps."""
+        p_tr = self._train['obs'].shape[0]
+        train, _ = self.stage(self._train)
+        return train, self.stage(self._test), (p_tr, _bucket_pow2(
+            max(p_tr // self.batch_size, 1)))
 
     def _split(self, paths):
         return paths.split([self.obs_dim, self.act_dim, self.obs_dim],
@@ -403,33 +304,14 @@ class RNNDynamicsModel:
             path_idx=torch.zeros((rows, self.batch_size), dtype=torch.int64,
                                  device=train.device))
 
-    def _load_state(self, st, params, opt_state, norm, train, test):
-        captured.load(st, self._step_layout, params, opt_state, norm, train,
-                      test)
-
-    def _state_out(self, st, clone):
-        """(params, opt_state) of a fit state in the JAX layout: copies
-        (clone) where the state lives on, else detached views where they
-        are contiguous."""
-        return captured.state_out(st, self._from_step_layout, clone)
-
-    def compiled_epoch(self, train, test):
-        """The CompiledEpoch of staged train/test data's shape key (the
-        train and test capacities, the path length and the batch size),
-        made on first use: its index table holds the most steps any fit of
-        this train capacity takes."""
+    def _epoch_key(self, train, test):
+        """(shape key: the train and test capacities, the path length and
+        the batch size; the index table's rows: the most steps any fit of
+        this train capacity takes)."""
         key = (train.shape[0], test[0].shape[0], train.shape[1],
                self.batch_size)
-        if key not in self._epoch_cache:
-            n_env = 1 if self.mesh is None else self.mesh.shape['env']
-            most = _bucket_pow2(max(train.shape[0] * n_env //
-                                    self.batch_size, 1))
-            st = self._fit_state(self.params, self.opt_state,
-                                 self.normalizer, train, test, most,
-                                 static=True)
-            self._epoch_cache[key] = captured.CompiledEpoch(
-                st, self._train_step, self._valid_step, self.device)
-        return self._epoch_cache[key]
+        return key, _bucket_pow2(max(
+            train.shape[0] * self._n_env // self.batch_size, 1))
 
     def _train_step(self, st):
         """One train step in place: the batch_size paths at the step
@@ -482,7 +364,6 @@ class RNNDynamicsModel:
         captured.run_epoch(st, n_batches, 1, train_step, valid_step)
         return st.sums[0] / n_batches, st.sums[1].clone()
 
-    @torch.no_grad()
     def epoch_fn(self, params, opt_state, norm, train, test, n_tr, n_batches,
                  generator, path_idx=None):
         """One epoch, run eagerly: n_batches train steps, each on
@@ -495,41 +376,13 @@ class RNNDynamicsModel:
         here waits for the device. The steps are the compiled epoch's
         (`_train_step`, `_valid_step`) on a state made for this epoch,
         the spans 'fit.train_step' and 'fit.valid_step'."""
-        st = self._fit_state(params, opt_state, norm, train, test,
-                             n_batches)
-        losses = self._epoch(st, n_tr, n_batches, generator, path_idx,
-                             lambda: self._train_step(st),
-                             lambda: self._valid_step(st))
-        return (*self._state_out(st, clone=False), *losses)
+        return self._eager_epoch(params, opt_state, norm, train, test,
+                                 n_batches, (n_tr, n_batches), generator,
+                                 path_idx)
 
     @property
     def recurrent(self):
         return True
-
-    # ---------------------------------------------------------------- state
-    def state_dict(self, include_data=False):
-        """numpy copies of params, optimizer state and normalizer; with
-        include_data also the dataset buffers and the split RNG, for
-        full-fidelity resume."""
-        sd = dict(params=tree_to_numpy(self.params),
-                  opt_state=adam_state_to_numpy(self.opt_state),
-                  normalizer=normalizer_to_numpy(self.normalizer))
-        if include_data:
-            sd.update(train=self._train, test=self._test,
-                      rng_state=self._rng.get_state())
-        return sd
-
-    def load_state_dict(self, sd):
-        dev = self.device
-        self.params = tree_from_numpy(sd['params'], dev, self.dtype)
-        self.opt_state = adam_state_from_numpy(sd['opt_state'], dev,
-                                               self.dtype)
-        self.normalizer = normalizer_from_numpy(sd['normalizer'], dev,
-                                                self.dtype)
-        self._train = sd.get('train')
-        self._test = sd.get('test')
-        if sd.get('rng_state') is not None:
-            self._rng.set_state(sd['rng_state'])
 
 
 #: the JAX package's RNNDynamicsModel.state_dict(...) (after

@@ -32,8 +32,10 @@ from learning_to_adapt_torch.envs import (  # noqa: E402
     HalfCheetahEnv, normalize)
 from learning_to_adapt_torch.models import (  # noqa: E402
     MetaMLPDynamicsModel, MLPDynamicsModel, RNNDynamicsModel, core)
+from learning_to_adapt_torch.models.fitting import (  # noqa: E402
+    _bucket_pow2)
 from learning_to_adapt_torch.models.meta_mlp import (  # noqa: E402
-    PATH_CHUNK, _bucket_pow2)
+    PATH_CHUNK)
 from learning_to_adapt_torch.models.optim import (  # noqa: E402
     tree_leaves, tree_unflatten)
 from learning_to_adapt_torch.parallel import mesh as par_mesh  # noqa: E402

@@ -5,10 +5,11 @@ chain, and the kernel wrapper's refusals; each model's train and
 validation steps on a compiled epoch's static state (its graphs run as
 plain calls on the CPU) against the JAX _get_epoch_fn epoch on the same
 injected windows, permutation or path indices; the per-epoch draws'
-bounds; the compiled fit path (the device rule patched to take it on the
-CPU) against the eager one, the isolation of what a fit hands out from
-the buffers the next fit overwrites, and the shape-key cache. One test,
-marked cuda, holds the captured epoch against the eager one on a card.
+bounds; the fit (one path on the CPU, over gloo and on the card) against
+the loop of epoch_fn calls on the same draws, the isolation of what a fit
+hands out from the buffers the next fit overwrites, the shape-key cache
+and the capture rule. One test, marked cuda, holds the captured epoch
+against the eager one on a card.
 """
 from types import SimpleNamespace
 
@@ -391,26 +392,43 @@ def _fit_data(algo, n_paths, seed, t_len=20):
     return obs, act, nxt
 
 
-@pytest.fixture
-def compiled_on_cpu(monkeypatch):
-    """The device rule patched to take the compiled epoch on the CPU."""
-    monkeypatch.setattr(captured, 'captures', lambda device, mesh: True)
+def _epoch_fn_fits(model, data, epochs):
+    """Fits of `model` whose epochs are epoch_fn calls: the shared loop's
+    seam (`_fit_epoch`) replaced by epoch_fn on the data and normalizer
+    the fit staged, from the params and optimizer state the last epoch
+    handed back, with the fit's generator; those are the model's after
+    each fit. Returns the fits' results."""
+    held = {}
+
+    def epoch(compiled, generator, counts):
+        st = compiled.state
+        params, opt_state, *losses = model.epoch_fn(
+            held['params'], held['opt'], st.norm, st.train, st.test, *counts,
+            generator)
+        held.update(params=params, opt=opt_state)
+        return losses
+    model._fit_epoch = epoch
+    outs = []
+    for d in data:
+        held.update(params=model.params, opt=model.opt_state)
+        outs.append(model.fit(*d, epochs=epochs))
+        model.params, model.opt_state = held['params'], held['opt']
+    return outs
 
 
 @pytest.mark.parametrize('algo', ['meta', 'mlp', 'rnn'])
-def test_compiled_fit_equals_eager_fit(algo, monkeypatch):
-    """Two fits through the compiled epoch (static state, steps as plain
-    calls) give the eager fits' parameters, optimizer state and losses bit
-    for bit: one step definition, the same draws."""
+def test_compiled_fit_equals_eager_fit(algo):
+    """Two fits (the compiled epoch's static state; its steps plain calls
+    on the CPU) give the parameters, optimizer state and losses of the
+    same fits with each epoch an epoch_fn call, on the same draws, bit for
+    bit: one fit path against the functional epoch the JAX parity tests
+    pin."""
+    data = [_fit_data(algo, 6, s) for s in (10, 11)]
     got = []
-    for compiled in (False, True):
-        if compiled:
-            monkeypatch.setattr(captured, 'captures',
-                                lambda device, mesh: True)
+    for eager in (False, True):
         model = _model(algo, seed=3)
-        outs = [model.fit(*_fit_data(algo, 6, s), epochs=3)
-                for s in (10, 11)]
-        assert bool(model._epoch_cache) == compiled
+        outs = (_epoch_fn_fits(model, data, 3) if eager else
+                [model.fit(*d, epochs=3) for d in data])
         got.append((outs, tree_leaves((model.params, model.opt_state))))
     assert got[0][0] == got[1][0]
     for a, b in zip(got[0][1], got[1][1]):
@@ -418,7 +436,24 @@ def test_compiled_fit_equals_eager_fit(algo, monkeypatch):
 
 
 @pytest.mark.parametrize('algo', ['meta', 'mlp', 'rnn'])
-def test_fit_output_does_not_alias_the_static_state(algo, compiled_on_cpu):
+def test_fit_refuses_malformed_inputs(algo):
+    """Every model's fit raises ValueError, before it draws or stages
+    anything, for obs or act of the wrong rank or width."""
+    model = _model(algo)
+    obs, act, nxt = _fit_data(algo, 4, 50)
+    state = model._rng.get_state()[1].copy()
+    for bad in (lambda x: x[..., :-1], lambda x: x[None], lambda x: x[0]):
+        for which in ('obs', 'act'):
+            args = dict(obs=obs, act=act)
+            args[which] = bad(args[which])
+            with pytest.raises(ValueError, match=f'{which} must be'):
+                model.fit(args['obs'], args['act'], nxt, epochs=1)
+    assert model._train is None and not model._epoch_cache
+    np.testing.assert_array_equal(model._rng.get_state()[1], state)
+
+
+@pytest.mark.parametrize('algo', ['meta', 'mlp', 'rnn'])
+def test_fit_output_does_not_alias_the_static_state(algo):
     """The params and the state_dict taken after one compiled fit are
     unchanged by a second fit of the same shape key, and no parameter the
     model holds shares storage with the compiled epoch's buffers."""
@@ -447,8 +482,7 @@ def test_fit_output_does_not_alias_the_static_state(algo, compiled_on_cpu):
     ('meta', (40, 20, 40), [(64, 64, 20, 2, 4), (128, 64, 20, 2, 4)]),
     ('rnn', (40, 20, 40), [(64, 64, 20, 2), (128, 64, 20, 2)]),
     ('mlp', (400, 200, 600), [(16384, 16384, 32), (32768, 16384, 32)])])
-def test_compiled_epoch_cache_by_shape_key(algo, n_paths, keys,
-                                           compiled_on_cpu):
+def test_compiled_epoch_cache_by_shape_key(algo, n_paths, keys):
     """Fits whose aggregated data stays within one capacity (PATH_CHUNK
     paths, PAD_CHUNK rows) reuse one compiled epoch, whatever their real
     path or row counts; the fit that crosses a bucket adds an entry."""
@@ -463,15 +497,36 @@ def test_compiled_epoch_cache_by_shape_key(algo, n_paths, keys,
     assert seen[2][0][1] is seen[0][0][1]
 
 
-def test_device_rule():
-    """Compiled on a CUDA device without a mesh or over nccl; eager on the
-    CPU and over gloo."""
+@pytest.mark.parametrize('case', ['rule', 'gloo_epoch'])
+def test_device_rule(case):
+    """Captured on a CUDA device without a mesh or over nccl; called on
+    the CPU and over gloo. A CompiledEpoch of CUDA tensors on a gloo mesh
+    calls its steps and captures nothing (nothing of CUDA is reached:
+    this machine may have no card), where over nccl it would capture."""
     nccl, gloo = (SimpleNamespace(backend=b) for b in ('nccl', 'gloo'))
-    assert captured.captures('cuda', None)
-    assert captured.captures(torch.device('cuda', 0), nccl)
-    assert not captured.captures('cuda:0', gloo)
-    assert not captured.captures('cpu', None)
-    assert not captured.captures('cpu', gloo)
+    if case == 'rule':
+        assert captured.captures('cuda', None)
+        assert captured.captures(torch.device('cuda', 0), nccl)
+        assert not captured.captures('cuda:0', gloo)
+        assert not captured.captures('cpu', None)
+        assert not captured.captures('cpu', gloo)
+        return
+    calls = []
+    state = SimpleNamespace(counter=torch.zeros(1, dtype=torch.int64),
+                            sel=torch.zeros((2, 3), dtype=torch.int64))
+    ce = captured.CompiledEpoch(state, lambda st: calls.append('train'),
+                                lambda st: calls.append('valid'), 'cuda:0',
+                                gloo)
+    ce.prepare(lambda st: calls.append('load'))
+    ce.train()
+    ce.train()
+    ce.valid()
+    assert calls == ['load', 'train', 'train', 'valid']
+    assert not ce.captured and ce.capture_s == 0
+    assert [(g.capturing, g.graph, g.replays) for g in (ce.train, ce.valid)
+            ] == [(False, None, 0)] * 2
+    over_nccl = captured.CompiledEpoch(state, None, None, 'cuda:0', nccl)
+    assert over_nccl.train.capturing and over_nccl.valid.capturing
 
 
 def test_count_collectives_adds_to_the_counters():

@@ -21,6 +21,8 @@ from learning_to_adapt_torch import run_grbal as port_grbal
 from learning_to_adapt_torch import run_mb_mpc as port_run
 from learning_to_adapt_torch.envs.base import EnvState
 from learning_to_adapt_torch.models import MLPDynamicsModel as PortMLP
+from learning_to_adapt_torch.models import MetaMLPDynamicsModel as PortMetaMLP
+from learning_to_adapt_torch.models import RNNDynamicsModel as PortRNN
 from learning_to_adapt_torch.models import mlp as port_mlp
 from learning_to_adapt_torch.models.optim import tree_leaves
 from learning_to_adapt_torch.ops import fused_mlp as port_fused
@@ -34,6 +36,8 @@ from learning_to_adapt_torch.samplers.rollout import (
 from learning_to_adapt_torch.utils.checkpoint import load_snapshot
 from learning_to_adapt_tpu import envs as jax_envs
 from learning_to_adapt_tpu.models import MLPDynamicsModel as JaxMLP
+from learning_to_adapt_tpu.models import MetaMLPDynamicsModel as JaxMetaMLP
+from learning_to_adapt_tpu.models import RNNDynamicsModel as JaxRNN
 from learning_to_adapt_tpu.models import mlp as jax_mlp
 from learning_to_adapt_tpu.models.normalizer import Normalizer as JaxNorm
 from learning_to_adapt_tpu.policies import MPCController as JaxMPC
@@ -184,9 +188,17 @@ def test_epoch_on_injected_permutation_matches_jax(n_members):
     _assert_leaves(p_opt['mu'], adam.mu, **EPOCH_TOL)
 
 
-def _stub_epochs(jm, pm, script):
-    """Replace both models' epochs by one that returns the scripted (train,
-    valid) losses in turn and records the shapes it was handed."""
+def _mlp_key(st, counts):
+    """The JAX MLP's epoch key (train and test capacities, batches) of what
+    the port's fit hands its epoch."""
+    return (st.train[0].shape[0], st.test[0].shape[0]) + tuple(counts)
+
+
+def _stub_epochs(jm, pm, script, key=_mlp_key):
+    """Replace both models' epochs (the port's at the shared loop's seam,
+    `_fit_epoch`) by one that returns the scripted losses in turn and
+    records the shapes it was handed (the port's as `key` makes the JAX
+    key of them)."""
     seen = dict(jax=[], port=[])
     j_iter, p_iter = iter(script), iter(script)
 
@@ -194,25 +206,22 @@ def _stub_epochs(jm, pm, script):
         seen['jax'].append(ck)
 
         def fn(params, opt_state, *_):
-            tr, va = next(j_iter)
-            return params, opt_state, tr, va
+            return (params, opt_state, *next(j_iter))
         return fn
     jm._get_epoch_fn = jax_get_epoch_fn
 
-    def port_epoch_fn(params, opt_state, norm, train, test, n_batches,
-                      generator):
-        seen['port'].append((train[0].shape[0], test[0].shape[0],
-                             n_batches))
-        tr, va = next(p_iter)
-        return params, opt_state, torch.tensor(tr), torch.tensor(va)
-    pm.epoch_fn = port_epoch_fn
+    def port_fit_epoch(compiled, generator, counts):
+        seen['port'].append(key(compiled.state, counts))
+        return [torch.tensor(x) for x in next(p_iter)]
+    pm._fit_epoch = port_fit_epoch
     return seen
 
 
 @pytest.mark.parametrize('n_rows,bs', [(1000, 128), (90, 16), (17000, 128)])
 def test_fit_split_and_rng_stream_match_jax(n_rows, bs):
-    """Successive fits with the epochs stubbed out: the capacities and
-    batch counts handed to each epoch, the aggregated train/valid buffers
+    """Successive fits with the epochs stubbed out (the port's at the
+    shared loop's seam, `_fit_epoch`): the capacities and batch counts
+    handed to each epoch, the aggregated train/valid buffers
     and the host RNG state equal the JAX package's bit for bit."""
     jm = JaxMLP('dyn', FakeEnv(), hidden_sizes=(8,), batch_size=bs,
                 valid_split_ratio=0.1, seed=3)
@@ -242,27 +251,59 @@ class _Logger:
         pass
 
 
-def test_early_stop_and_logged_keys_match_jax():
+def _twins(algo):
+    """(JAX model, port model, fit data, the key of the JAX epoch that
+    the port's fit hands its epoch, the logged keys) of MB-MPC's MLP,
+    GrBAL's meta-MLP or ReBAL's recurrent model."""
+    if algo == 'mbmpc':
+        kw = dict(hidden_sizes=(8,), batch_size=16)
+        return (JaxMLP('dyn', FakeEnv(), **kw),
+                PortMLP('dyn', FakeEnv(), device='cpu', **kw), _rows(100, 7),
+                _mlp_key, ['Epochs', 'TrainLoss', 'ValidLoss'])
+    paths = tuple(x.reshape(5, 20, -1) for x in _rows(100, 7))
+    if algo == 'grbal':
+        kw = dict(hidden_sizes=(8,), meta_batch_size=2, batch_size=4)
+        jax_cls, port_cls = JaxMetaMLP, PortMetaMLP
+
+        def key(st, counts):
+            return (st.train.shape[0], st.test.shape[0],
+                    st.train.shape[1]) + tuple(counts[2:])
+        keys = ['Epochs', 'Pre-Loss', 'Post-Loss']
+    else:
+        kw = dict(hidden_sizes=(8,), batch_size=2, backprop_steps=10)
+        jax_cls, port_cls = JaxRNN, PortRNN
+
+        def key(st, counts):
+            return (st.train.shape[0], st.test[0].shape[0], st.train.shape[1],
+                    counts[1])
+        keys = ['Epochs', 'TrainLoss']
+    return (jax_cls('dyn', FakeEnv(), **kw),
+            port_cls('dyn', FakeEnv(), device='cpu', **kw), paths, key, keys)
+
+
+@pytest.mark.parametrize('algo', ['mbmpc', 'grbal', 'rebal'])
+def test_early_stop_and_logged_keys_match_jax(algo):
     """A scripted validation curve: the rolling-average stop fires at the
-    same epoch, and Epochs, TrainLoss and ValidLoss (the rolling average,
-    not the last loss) are logged as the JAX model logs them."""
-    jm = JaxMLP('dyn', FakeEnv(), hidden_sizes=(8,), batch_size=16)
-    pm = PortMLP('dyn', FakeEnv(), hidden_sizes=(8,), batch_size=16,
-                 device='cpu')
+    same epoch, and the progress.csv columns (MB-MPC's Epochs, TrainLoss
+    and ValidLoss, the rolling average, not the last loss; GrBAL's Epochs,
+    Pre-Loss and Post-Loss; ReBAL's Epochs and TrainLoss) are logged as
+    the JAX model logs them. The losses at the stop are exact in f32."""
+    jm, pm, data, key, keys = _twins(algo)
     script = [(0.5, 1.0), (0.4, 0.5), (0.3, 0.4), (0.25, 5.0), (0.2, 0.1)]
-    _stub_epochs(jm, pm, script)
+    if algo == 'grbal':  # (post, pre, valid)
+        script = [(tr, 1.5 * tr, va) for tr, va in script]
+    seen = _stub_epochs(jm, pm, script, key)
     logs = _Logger(), _Logger()
-    rows = _rows(100, 7)
-    out_j = jm.fit(*rows, epochs=10, rolling_average_persitency=0.5,
+    out_j = jm.fit(*data, epochs=10, rolling_average_persitency=0.5,
                    log_tabular=True, logger=logs[0], verbose=True)
-    out_p = pm.fit(*rows, epochs=10, rolling_average_persitency=0.5,
+    out_p = pm.fit(*data, epochs=10, rolling_average_persitency=0.5,
                    log_tabular=True, logger=logs[1], verbose=True)
     assert out_p == out_j and out_p['epochs'] == 3
-    assert list(logs[1].kvs) == list(logs[0].kvs) == [
-        'Epochs', 'TrainLoss', 'ValidLoss']
+    assert seen['port'] == seen['jax'] * 4
+    assert list(logs[1].kvs) == list(logs[0].kvs) == keys
     np.testing.assert_allclose(list(logs[1].kvs.values()),
                                list(logs[0].kvs.values()), rtol=1e-6)
-    assert logs[1].kvs['ValidLoss'] != 5.0
+    assert logs[1].kvs.get('ValidLoss') != 5.0
 
 
 def test_state_dicts_across_packages_and_round_trip():

@@ -202,8 +202,9 @@ def test_train_steps_and_masked_validation_match_jax():
 
 @pytest.mark.parametrize('n_paths', [1, 5])
 def test_fit_split_and_rng_stream_match_jax(n_paths):
-    """Successive fits with the epochs stubbed out: capacities, path
-    counts, batch counts, the aggregated buffers (with one path, the split
+    """Successive fits with the epochs stubbed out (the port's at the
+    shared loop's seam, `_fit_epoch`): capacities, path counts, batch
+    counts, the aggregated buffers (with one path, the split
     takes it and the test set is idx[-1:]) and the host RNG state equal
     the JAX package's."""
     env = FakeEnv()
@@ -218,12 +219,13 @@ def test_fit_split_and_rng_stream_match_jax(n_paths):
         return lambda params, opt_state, *_: (params, opt_state, 0., 1.)
     jm._get_epoch_fn = jax_get_epoch_fn
 
-    def port_epoch_fn(params, opt_state, norm, train, test, n_tr, n_batches,
-                      generator):
+    def port_fit_epoch(compiled, generator, counts):
+        train, test = compiled.state.train, compiled.state.test
+        _, n_batches = counts
         seen['port'].append((train.shape[0], test[0].shape[0],
                              train.shape[1], n_batches))
-        return params, opt_state, torch.tensor(0.), torch.tensor(1.)
-    pm.epoch_fn = port_epoch_fn
+        return torch.tensor(0.), torch.tensor(1.)
+    pm._fit_epoch = port_fit_epoch
     for i in range(6):
         paths = _paths(n_paths, 20, 100 + i)
         jm.fit(*paths, epochs=1)

@@ -43,7 +43,8 @@ def tracing_off():
 
 @pytest.fixture
 def compiled_on_cpu(monkeypatch):
-    """The device rule patched to take the compiled paths on the CPU."""
+    """The device rule patched to take the compiled rollout on the CPU (the
+    fits take their compiled epoch everywhere)."""
     monkeypatch.setattr(captured, 'captures', lambda device, mesh: True)
 
 
@@ -113,7 +114,7 @@ def test_off_records_nothing_and_on_changes_nothing(algo, compiled_on_cpu):
     assert ('rollout.adapt' in host) == (algo == 'grbal')
 
 
-def test_recurrent_fit_records_its_spans(compiled_on_cpu):
+def test_recurrent_fit_records_its_spans():
     """The recurrent model's fit, off and on: the same losses and
     parameters bit for bit; on, one read of the losses an epoch and the
     three parts of every train step."""
@@ -214,7 +215,7 @@ def test_compiled_rollout_keeps_graphs_by_tracing_state(compiled_on_cpu):
         assert torch.equal(a[k], b[k])
 
 
-def test_compiled_epoch_keeps_graphs_by_tracing_state(compiled_on_cpu):
+def test_compiled_epoch_keeps_graphs_by_tracing_state():
     _, model, _, _ = _parts('mbmpc')
     rng = np.random.RandomState(0)
     obs, act = rng.randn(40, 20), rng.uniform(-1, 1, (40, 6))

@@ -209,9 +209,10 @@ def test_bucket_pow2_matches_jax():
 @pytest.mark.parametrize('n_paths,t_len,mbs,bs', [
     (5, 100, 10, 16), (3, 64, 4, 8), (12, 40, 2, 4), (1, 30, 10, 8)])
 def test_fit_shapes_and_split_match_jax(n_paths, t_len, mbs, bs):
-    """Twenty successive fits with the epochs stubbed out on both sides:
-    the capacities and step counts every fit hands its epoch, and the
-    aggregated train/valid buffers, equal the JAX package's."""
+    """Twenty successive fits with the epochs stubbed out on both sides
+    (the port's at the shared loop's seam, `_fit_epoch`): the capacities
+    and step counts every fit hands its epoch, and the aggregated
+    train/valid buffers, equal the JAX package's."""
     env = FakeEnv()
     jm = JaxMetaMLP('dyn', env, hidden_sizes=(8,), meta_batch_size=mbs,
                     batch_size=bs, valid_split_ratio=0.1, seed=3)
@@ -225,13 +226,13 @@ def test_fit_shapes_and_split_match_jax(n_paths, t_len, mbs, bs):
         return lambda params, opt_state, *_: (params, opt_state, 0., 0., 0.)
     jm._get_epoch_fn = jax_get_epoch_fn
 
-    def port_epoch_fn(params, opt_state, norm, train, test, n_tr, n_te,
-                      steps_per_epoch, steps_test, generator):
+    def port_fit_epoch(compiled, generator, counts):
+        train, test = compiled.state.train, compiled.state.test
+        _, _, steps_per_epoch, steps_test = counts
         p_seen.append((train.shape[0], test.shape[0], train.shape[1],
                        steps_per_epoch, steps_test))
-        zero = torch.zeros(())
-        return params, opt_state, zero, zero, zero
-    pm.epoch_fn = port_epoch_fn
+        return [torch.zeros(())] * 3
+    pm._fit_epoch = port_fit_epoch
     for i in range(20):
         paths = _paths(n_paths, t_len, 100 + i, env)
         jm.fit(*paths, epochs=1)
