@@ -7,8 +7,13 @@ is the hidden state itself: `predict_fn` threads it.
 The fit is truncated BPTT: each train step takes batch_size paths, drawn
 with replacement, cuts them into backprop_steps-long chunks, carries the
 hidden state from chunk to chunk with its gradient stopped, and averages
-the chunks' losses and gradients before one clip + Adam step. Validation is
-the masked loss over the whole padded test set.
+the chunks' losses and gradients before one clip + Adam step. As the
+stopped gradient leaves the chunks' backward recurrences independent, each
+chunk takes its own gradient as soon as its forward ends, on the card on a
+CUDA stream of its own (`tbptt_chunks`), so that the backwards run beside
+the forward recurrence, not after it; the chunks' gradients are summed in
+chunk order (`chunk_grads`). Validation is the masked loss over the whole
+padded test set.
 
 Two routes compute the same cells. A fit's chunk, and any whole sequence,
 runs through torch's recurrent layer ops (torch.lstm / gru / rnn_tanh, as
@@ -38,11 +43,14 @@ Spans and counters (utils/tracing.py): each call of the recurrent layer
 op is the span 'rnn.seq' (one a layer and TBPTT chunk in a train step,
 nested in 'fit.loss'; one a layer over the whole test set in the
 validation step), stamped on the device inside the captured steps as the
-'fit.*' spans are; with tracing off it is the record_function range it
-would be and the captured graphs launch nothing more. The counter
-'rnn.seq_steps' adds the time steps of each such call where the host
-makes it: every call of a step that is not captured, and on the card each
-capture's calls once (its warm-ups count nothing), not the replays.
+'fit.*' spans are, on the stream that runs it (a train step's on its
+chunk's); with tracing off it is the record_function range it would be
+and the captured graphs launch nothing more. The counter 'rnn.seq_steps'
+adds the time steps of each such call where the host makes it: every call
+of a step that is not captured, and on the card each capture's calls once
+(its warm-ups count nothing), not the replays. The counter
+'rnn.chunk_streams' adds, in the same way, the chunks a train step forks
+onto streams of their own: n_chunks a capture on the card, 0 on the CPU.
 
 With `model.mesh` set (parallel/mesh.py) the fit is data parallel: every
 rank holds the whole host dataset (the sampler gathered it) and draws the
@@ -106,6 +114,7 @@ class RNNDynamicsModel(FitMixin):
             in_dim = h
         out = core.init_mlp(gen, in_dim, (), self.obs_dim, dtype, self.device)
         self.params = {'cells': cells, 'out': out}
+        self._streams = []  # the TBPTT chunks' CUDA streams, made as needed
         self._init_fit(learning_rate, seed)
 
     # ------------------------------------------------------------- forward
@@ -212,24 +221,105 @@ class RNNDynamicsModel(FitMixin):
         return paths.split([self.obs_dim, self.act_dim, self.obs_dim],
                            dim=-1)
 
-    def tbptt_loss(self, layers, out, norm, obs, act, delta):
-        """Mean over the chunks of each chunk's mean squared error, the
-        hidden state carried across chunks with its gradient stopped: its
-        gradient is the chunks' gradients averaged. Chunks of
-        backprop_steps steps, max(T // backprop_steps, 1) of them. layers,
-        out: as `_seq` takes them."""
+    def _chunk_streams(self, n_chunks):
+        """A CUDA stream of its own for each of n_chunks TBPTT chunks, made
+        once a model and kept, so that a capture's warm-ups set up each
+        stream's library workspaces before the capture (cuBLAS keeps two
+        of 32 MiB a stream on an H100, for the process). PyTorch hands out
+        the streams of a priority in turn from a pool of 32; the
+        default-priority pool also gives the captures' stream and each
+        capture's warm-up stream, so after enough captures a chunk could
+        get the step's own stream and run in turn with it. The chunks take
+        the high-priority pool, which nothing else draws from; as the
+        chunks' work and the step's own do not overlap, the priority itself
+        sets no order. None for each chunk off CUDA or for a single chunk:
+        nothing forks."""
+        if self.device.type != 'cuda' or n_chunks == 1:
+            return [None] * n_chunks
+        while len(self._streams) < n_chunks:
+            self._streams.append(torch.cuda.Stream(self.device, priority=-1))
+        return self._streams[:n_chunks]
+
+    def tbptt_chunks(self, layers, out, norm, obs, act, delta, leaves):
+        """The TBPTT loss and each chunk's gradient, issued chunk by chunk:
+        chunks of backprop_steps steps, max(T // backprop_steps, 1) of
+        them, the hidden state carried across chunks with its gradient
+        stopped. So chunk c's loss, its mean squared error, reaches the
+        weights through its own forward alone, and its gradient
+        (`autograd.grad` of `leaves`) is taken as soon as that forward ends.
+
+        On a CUDA device each chunk runs on a stream of its own
+        (`_chunk_streams`), forked from the current one: its forward once
+        the previous chunk's is done (an event recorded before that
+        chunk's gradient is issued: the hidden state it starts from), then
+        its gradient. Autograd runs each backward op on its forward op's
+        stream, so a chunk's backward recurrence runs beside the later
+        chunks' forwards. cuDNN runs its recurrent kernels on streams of its
+        handle, one handle a host thread, each joined to the caller's
+        stream: the forwards (this thread's) follow one another, as the
+        hidden state makes them, and so do the backwards (autograd's device
+        thread's), the two chains side by side. Off CUDA, or with one
+        chunk, nothing forks and the chunks run one after another. The
+        counter 'rnn.chunk_streams' adds the chunks forked onto streams of
+        their own (0 where nothing forks).
+
+        Returns (the mean of the chunks' losses, ready on the current
+        stream; the chunks' gradients in chunk order; their streams), for
+        `chunk_grads`. layers, out: as `_seq` takes them."""
         bp = self.backprop_steps
         n_chunks = max(obs.shape[1] // bp, 1)
-        hidden = self.get_initial_hidden(obs.shape[0])
-        total = 0.0
-        for c in range(n_chunks):
+        streams = self._chunk_streams(n_chunks)
+        forked = streams[0] is not None
+        tracing.count('rnn.chunk_streams', n_chunks if forked else 0)
+        current = torch.cuda.current_stream(obs.device) if forked else None
+        hidden = ready = None
+        losses, grads = [], []
+        for c, stream in enumerate(streams):
             span = slice(c * bp, (c + 1) * bp)
-            pred, hidden = self._seq(layers, out, norm, obs[:, span],
-                                     act[:, span], hidden)
-            total = total + torch.mean(torch.square(
-                pred - norm.norm_delta(delta[:, span])))
-            hidden = tree_map(torch.Tensor.detach, hidden)
-        return total / n_chunks
+            if forked:
+                stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                if ready is not None:
+                    stream.wait_event(ready)
+                if hidden is None:
+                    # made on chunk 0's stream, which allocates nothing
+                    # more this step: chunk 0's backward reads it to its
+                    # end, when its block may go back to its stream's pool
+                    hidden = self.get_initial_hidden(obs.shape[0])
+                pred, hidden = self._seq(layers, out, norm, obs[:, span],
+                                         act[:, span], hidden)
+                hidden = tree_map(torch.Tensor.detach, hidden)
+                loss = torch.mean(torch.square(
+                    pred - norm.norm_delta(delta[:, span])))
+                ready = stream.record_event() if forked else None
+                grads.append(torch.autograd.grad(loss, leaves))
+            losses.append(loss.detach())
+            # chunk c's graph goes before chunk c + 1's forward, so that each
+            # forward makes the leaves' AccumulateGrad nodes on its own
+            # stream: one kept from an earlier chunk would sync the chunks'
+            # backwards through that chunk's stream
+            del pred, loss
+        if forked:
+            # the last chunk's forward waited for every earlier one's
+            current.wait_event(ready)
+        return torch.stack(losses).mean(), grads, streams
+
+    @staticmethod
+    def chunk_grads(grads, streams, scale):
+        """The gradient of the chunks' mean loss times scale, from
+        `tbptt_chunks`' per-chunk gradients: the current stream joins every
+        chunk stream, then the gradients are summed in chunk order, a fixed
+        order, so that a captured step and the eager one agree bit for
+        bit. The chunks' tensors are read here, on the current stream,
+        only after the join, and no chunk stream allocates again before the
+        next step forks it from there."""
+        for stream in streams:
+            if stream is not None:
+                torch.cuda.current_stream(stream.device).wait_stream(stream)
+        total = list(grads[0])
+        for g in grads[1:]:
+            total = torch._foreach_add(total, g)
+        return torch._foreach_mul(total, scale / len(grads))
 
     def valid_terms(self, layers, out, norm, test):
         """(each test path's mean squared error weighted by its mask and
@@ -317,24 +407,26 @@ class RNNDynamicsModel(FitMixin):
         """One train step in place: the batch_size paths at the step
         counter's row of the index table (with a mesh, assembled by one
         all_reduce), the TBPTT loss of this rank's share of them, scaled by
-        that share (span 'fit.loss'), and its gradient, one all_reduce
-        summing gradients and loss over the ranks ('fit.grad'), clip and
-        Adam, then the loss added to the sums and the counter advanced
-        ('fit.optim', the step's last span)."""
+        that share, each chunk's gradient issued as its forward ends (span
+        'fit.loss', to the last chunk's loss; on one stream the earlier
+        chunks' backwards lie inside it), then the chunks' gradients joined
+        and summed and one all_reduce summing gradients and loss over the
+        ranks ('fit.grad'), clip and Adam, then the loss added to the sums
+        and the counter advanced ('fit.optim', the step's last span)."""
         mesh, bs = self.mesh, self.batch_size
         with tracing.span('fit.loss'):
             share = par_mesh.batch_share(mesh, bs)
+            scale = (share.stop - share.start) / bs
             paths, = par_mesh.take_rows(
                 mesh, (st.train,), st.path_idx.index_select(0, st.counter)[0])
             with torch.enable_grad():
-                loss = self.tbptt_loss(st.layers, st.out, st.norm,
-                                       *self._split(paths[share])) * (
-                                           (share.stop - share.start) / bs)
+                loss, grads, streams = self.tbptt_chunks(
+                    st.layers, st.out, st.norm, *self._split(paths[share]),
+                    st.leaves)
+            loss = loss * scale
         with tracing.span('fit.grad'):
-            with torch.enable_grad():
-                grads = torch.autograd.grad(loss, st.leaves)
-            *grads, loss = par_mesh.all_reduce_flat(
-                mesh, list(grads) + [loss.detach()])
+            grads = self.chunk_grads(grads, streams, scale)
+            *grads, loss = par_mesh.all_reduce_flat(mesh, [*grads, loss])
         with tracing.span('fit.optim'):
             self.optimizer.step_(st.leaves, grads, st.count, st.mu, st.nu)
             st.sums[0].add_(loss)

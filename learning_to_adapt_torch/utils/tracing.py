@@ -26,22 +26,27 @@ it belongs to (None outside one).
 
 Inside a step that models/captured.py StepGraph captures, a span with
 tracing on is stamped on the device: a one-thread kernel
-(csrc/span_stamp.cu) captured into the graph writes the global timer and
-its slot into a ring in device memory at every replay. A stamp carries the
-span edges at its place in the step (the step's begin, a span's open, a
-span's close, the step's end); edges with nothing launched between them
-share one stamp (the capture is asked for its tail), so each stamp closes
-one part and opens the next: a train step has 4 (its three spans end it;
-a recurrent model's 2 more a layer and TBPTT chunk, for 'rnn.seq' inside
-'fit.loss'), a validation step 2 (the recurrent model's 4), an MB-MPC
-sampling step 4 (the copies of the carry follow its last span), a GrBAL
-one 5 before its adaptation gate and 7 after it (its adaptation and pack
-nest in the plan). A call reads the ring
-at its end in one copy and turns the stamps into records of clock
-'device': the step itself from its first stamp to its last, its parent
-the host span around the replay, and each span inside it. On the CPU, on
-the eager paths and in everything outside a graph, spans are timed by the
-host (clock 'host'); the warm-ups before a capture record nothing.
+(csrc/span_stamp.cu) captured into the graph, on the stream the span runs
+on, writes the global timer and its slot into a ring in device memory at
+every replay. A stamp carries the span edges at its place in the step (the
+step's begin, a span's open, a span's close, the step's end); edges on one
+stream with nothing launched between them share one stamp (the capture is
+asked for that stream's tail), so each stamp closes one part and opens the
+next: a train step has 4 (its three spans end it; a recurrent model's 2
+more a layer and TBPTT chunk, for 'rnn.seq' inside 'fit.loss'), a
+validation step 2 (the recurrent model's 4), an MB-MPC sampling step 4
+(the copies of the carry follow its last span), a GrBAL one 5 before its
+adaptation gate and 7 after it (its adaptation and pack nest in the plan).
+A call reads the ring at its end in one copy and turns the stamps into
+records of clock 'device': the step itself from its first stamp to its
+last, its parent the host span around the replay, and each span inside
+it. A step's stamps on streams that run at once (models/rnn.py's TBPTT
+chunks) reach the ring in the order they ran: a replay's stamps are
+matched to its slots stream by stream, in their captured order on each
+stream and in any order across streams, and its edges taken in their
+captured order. On the CPU, on the eager paths and in everything outside
+a graph, spans are timed by the host (clock 'host'); the warm-ups before
+a capture record nothing.
 The spans inside the captured steps: 'fit.loss', 'fit.grad', 'fit.optim'
 (every fit's train step), 'rnn.seq' (models/rnn.py: each call of the
 recurrent layer op, in 'fit.loss' and in the validation step),
@@ -83,6 +88,7 @@ _records = []       # [name, clock, start, end, parent, call]
 _stack = []         # indices of the open host spans
 _counters = {}
 _slots = []         # slot -> [(edge, name)]: what each stamp marks
+_slot_streams = {}  # slot -> the stream it was stamped on (None: one)
 _rings = {}         # device -> _Ring
 _lib = []
 
@@ -249,7 +255,8 @@ def _check(rc, what):
 
 
 def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The device's current stream (its handle)."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _device(device):
@@ -282,7 +289,7 @@ class _Ring:
         self.calib[0].zero_()
         _check(_library().span_calibrate(
             ctypes.c_void_p(self.calib.data_ptr()), CALIBRATION,
-            _stream(self.device), host), 'calibration')
+            ctypes.c_void_p(_stream(self.device)), host), 'calibration')
         stamps = self.calib[1::2].tolist()
         best = min(range(CALIBRATION),
                    key=lambda i: host[2 * i + 1] - host[2 * i])
@@ -313,6 +320,14 @@ class _Ring:
                self.clock.offset)
 
 
+def _by_stream(slots):
+    """{stream: its slots in order} of a sequence of slots."""
+    out = {}
+    for slot in slots:
+        out.setdefault(_slot_streams.get(slot), []).append(slot)
+    return out
+
+
 def decode(times, slots, replays, offset):
     """Appends the records of stamped replays: times and slots as the ring
     holds them, replays as (expected slots, host parent, call), offset the
@@ -320,12 +335,16 @@ def decode(times, slots, replays, offset):
     i = 0
     for expect, parent, call_id in replays:
         got = slots[i:i + len(expect)]
-        if list(got) != list(expect):
+        # stamps on concurrent streams reach the ring in the order they
+        # ran, each stream's in its captured order; their edges are taken
+        # in the order they were captured
+        if _by_stream(got) != _by_stream(expect):
             raise RuntimeError(f'device stamps {got} where a replay writes '
                                f'{list(expect)}')
+        at = dict(zip(got, times[i:i + len(expect)]))
         stack = []
-        for t, slot in zip(times[i:i + len(expect)], expect):
-            t += offset
+        for slot in expect:
+            t = at[slot] + offset
             for edge, name in _slots[slot]:
                 if edge == 'open':
                     stack.append(len(_records))
@@ -353,30 +372,36 @@ class _Capture:
     """The stamps of a step being captured: slots, in order."""
 
     def __init__(self, device):
+        self.device = device
         self.ring = _rings[device]
-        self.stream = _stream(device)
         self.slots = []
-        self.tail = None
+        self.stream = self.tail = None
 
-    def _tail(self):
+    def _tail(self, stream):
         node, n = ctypes.c_ulonglong(), ctypes.c_ulonglong()
-        _check(_library().span_capture_tail(self.stream, ctypes.byref(node),
-                                            ctypes.byref(n)), 'capture info')
+        _check(_library().span_capture_tail(
+            ctypes.c_void_p(stream), ctypes.byref(node), ctypes.byref(n)),
+            'capture info')
         return node.value if n.value == 1 else None
 
     def edge(self, edge, name):
-        tail = self._tail()
-        if self.slots and tail is not None and tail == self.tail:
-            # nothing was launched since the last stamp: it marks this edge
+        """Stamps an edge on the current stream (a step's spans may run on
+        streams forked from the capture's), or marks it by the last stamp
+        where that was on this stream and nothing was launched since."""
+        stream = _stream(self.device)
+        tail = self._tail(stream)
+        if (self.slots and stream == self.stream and tail is not None and
+                tail == self.tail):
             _slots[self.slots[-1]].append((edge, name))
             return
         slot = len(_slots)
         _slots.append([(edge, name)])
         _check(_library().span_stamp(
             ctypes.c_void_p(self.ring.buf.data_ptr()), RING_SIZE, slot,
-            self.stream), 'launch')
+            ctypes.c_void_p(stream)), 'launch')
+        _slot_streams[slot] = stream
         self.slots.append(slot)
-        self.tail = self._tail()
+        self.stream, self.tail = stream, self._tail(stream)
 
 
 class stamps:

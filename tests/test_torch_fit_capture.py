@@ -8,12 +8,13 @@ injected windows, permutation or path indices; the per-epoch draws'
 bounds; the fit (one path on the CPU, over gloo and on the card) against
 the loop of epoch_fn calls on the same draws, the isolation of what a fit
 hands out from the buffers the next fit overwrites, the shape-key cache
-and the capture rule. One test, marked cuda, holds the captured epoch
-against the eager one on a card.
+and the capture rule. Two tests, marked cuda, hold the captured epoch
+against the eager one on a card, and ReBAL's concurrent TBPTT chunks.
 """
 from types import SimpleNamespace
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from learning_to_adapt_torch.models import (
 from learning_to_adapt_torch.models.optim import ClipAdam, tree_leaves
 from learning_to_adapt_torch.ops import clip_adam
 from learning_to_adapt_torch.parallel import mesh as par_mesh
+from learning_to_adapt_torch.utils import tracing
 
 torch.set_num_threads(2)  # the suite runs 6 workers on 8 cores
 
@@ -582,3 +584,84 @@ def test_captured_epoch_matches_eager_on_the_card(algo):
         torch.testing.assert_close(a, b, **CUDA_TOL)
     torch.testing.assert_close(torch.stack(list(losses)),
                                torch.stack(list(eager[2:])), **CUDA_TOL)
+
+
+def _kernels(prof, path):
+    """(name, start, end, stream) of each kernel of a profiler's trace."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    return [(e['name'], e['ts'], e['ts'] + e['dur'], e['args'].get('stream'))
+            for e in events if e.get('cat') == 'kernel']
+
+
+def _overlap(a, b):
+    """True where some kernel of a runs while some kernel of b does."""
+    return any(s1 < e2 and s2 < e1 for _, s1, e1, _ in a
+               for _, s2, e2, _ in b)
+
+
+def _captured_rebal_against_eager(dev, n_chunks):
+    """ReBAL's captured epoch of 8 train steps of n_chunks TBPTT chunks
+    against the eager epoch from one state on the same draws, bit for bit
+    in parameters and losses; the capture's 'rnn.chunk_streams' count.
+    Returns the compiled epoch."""
+    model = RNNDynamicsModel('dyn', FakeEnv(), device=dev, seed=0)
+    assert (model.cell_type, model.backprop_steps) == ('lstm', 50)
+    before = tracing.counters().get('rnn.chunk_streams', 0)
+    model.fit(*_fit_data('rnn', 12, 41, t_len=50 * n_chunks), epochs=1)
+    assert tracing.counters()['rnn.chunk_streams'] - before == n_chunks
+    train, test = model.stage(model._train)[0], model.stage(model._test)
+    p0, o0 = model.params, model.opt_state
+    ce = model.compiled_epoch(train, test)
+    ce.prepare(lambda st: model._load_state(st, p0, o0, model.normalizer,
+                                            train, test))
+    n_tr = model._train['obs'].shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    eager = model.epoch_fn(p0, o0, model.normalizer, train, test, n_tr, 8,
+                           gen)
+    gen.manual_seed(6)
+    replays = ce.train.replays
+    losses = model._epoch(ce.state, n_tr, 8, gen, None, ce.train, ce.valid)
+    params, _ = model._state_out(ce.state, clone=True)
+    assert ce.train.replays - replays == 8
+    for a, b in zip(tree_leaves(params), tree_leaves(eager[0])):
+        assert torch.equal(a, b)
+    assert torch.equal(torch.stack(list(losses)),
+                       torch.stack(list(eager[2:])))
+    return ce
+
+
+@pytest.mark.cuda
+def test_rebal_chunks_take_their_gradients_concurrently(tmp_path):
+    """On a card: ReBAL's train step of 2, then of 4, TBPTT chunks forks
+    each chunk onto a stream of its own ('rnn.chunk_streams' adds the
+    chunks at the train step's capture), and its captured epoch of 8 steps
+    gives the eager epoch's parameters and losses bit for bit from one
+    state on the same draws. In a profiler trace of one replay of 4 chunks
+    the chunks' backward cell kernels run while later chunks' forward cell
+    kernels do (cuDNN runs the backwards on its own handle's stream, so
+    they follow one another: printed)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card: a CUDA graph has no CPU mode')
+    dev = torch.device('cuda', 0)
+    _captured_rebal_against_eager(dev, 2)
+    ce = _captured_rebal_against_eager(dev, 4)
+
+    ce.state.counter.zero_()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ce.train()
+        torch.cuda.synchronize()
+    kernels = _kernels(prof, tmp_path / 'replay.json')
+    back = sorted((k for k in kernels if 'elementWise_bp1' in k[0]),
+                  key=lambda k: k[1])
+    fwd = [k for k in kernels if 'elemWiseRNNcell' in k[0]]
+    print(f'replay: {len(back)} backward and {len(fwd)} forward cell '
+          f'kernels, the backward ones on streams '
+          f'{sorted({k[3] for k in back})}; backward kernels of two chunks '
+          f'at once: {_overlap(back[:50], back[50:])}')
+    assert len(back) == len(fwd) == 200
+    assert _overlap(back, fwd)

@@ -26,6 +26,7 @@ from learning_to_adapt_torch.physics import engine as port_engine
 from learning_to_adapt_torch.physics import spec as port_spec
 from learning_to_adapt_torch.policies import RNNMPCController as PortRNNMPC
 from learning_to_adapt_torch.policies import planners as port_planners
+from learning_to_adapt_torch.utils import tracing
 from learning_to_adapt_torch.samplers.rollout import (
     make_rollout_fn as port_rollout_fn)
 from learning_to_adapt_tpu import envs as jax_envs
@@ -187,6 +188,51 @@ def test_tbptt_gradient_matches_jax(cell):
     adam = j_opt[1][0]
     _assert_trees(p_opt['mu'], adam.mu, rtol=1e-4, atol=1e-7)
     _assert_trees(p_opt['nu'], adam.nu, rtol=1e-3, atol=1e-10)
+
+
+def _summed_tbptt_grad(pm, st, obs, act, delta, scale):
+    """The TBPTT loss as one sum over the chunks (the hidden state detached
+    between them), scaled, and autograd.grad of it over the fit state's
+    leaves."""
+    bp = pm.backprop_steps
+    n_chunks = obs.shape[1] // bp
+    hidden = pm.get_initial_hidden(obs.shape[0])
+    total = 0.0
+    for c in range(n_chunks):
+        span = slice(c * bp, (c + 1) * bp)
+        pred, hidden = pm._seq(st.layers, st.out, st.norm, obs[:, span],
+                               act[:, span], hidden)
+        total = total + torch.mean(torch.square(
+            pred - st.norm.norm_delta(delta[:, span])))
+        hidden = tree_map(torch.Tensor.detach, hidden)
+    loss = total / n_chunks * scale
+    return loss, torch.autograd.grad(loss, st.leaves)
+
+
+@pytest.mark.parametrize('n_chunks', [1, 2, 10])
+@pytest.mark.parametrize('cell', CELL_TYPES)
+def test_chunk_gradients_sum_to_the_tbptt_gradient(cell, n_chunks):
+    """Each chunk's gradient taken as its forward ends (tbptt_chunks),
+    summed in chunk order and scaled by a rank's share (chunk_grads),
+    against autograd.grad of the summed TBPTT loss, on the fit state's two
+    stacked layers; on the CPU nothing forks and 'rnn.chunk_streams'
+    adds 0."""
+    _, pm = _models(cell, hidden=(16, 12))
+    _, paths, test = _staged(3, 3, pm.backprop_steps * n_chunks, 9)
+    st = pm._fit_state(pm.params, pm.opt_state, pm.normalizer, paths, test,
+                       1)
+    obs, act, delta = pm._split(paths)
+    want_loss, want = _summed_tbptt_grad(pm, st, obs, act, delta, 0.5)
+    before = tracing.counters().get('rnn.chunk_streams', 0)
+    loss, grads, streams = pm.tbptt_chunks(st.layers, st.out, st.norm, obs,
+                                           act, delta, st.leaves)
+    assert streams == [None] * n_chunks and len(grads) == n_chunks
+    assert tracing.counters()['rnn.chunk_streams'] == before
+    got = pm.chunk_grads(grads, streams, 0.5)
+    torch.testing.assert_close(loss * 0.5, want_loss.detach(), **F32_TOL)
+    assert len(got) == len(want) == len(st.leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
 def test_train_steps_and_masked_validation_match_jax():

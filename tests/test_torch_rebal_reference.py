@@ -123,17 +123,18 @@ def _reference_loss_grads(weights, stats, o, a, d, variant):
                                      'no_stop'])
 def test_tbptt_loss_and_gradients(variant):
     """The port's TBPTT loss and gradient (its train step's own
-    tbptt_loss on the fit state's cuDNN-layout weights) against the
-    reference's; each variant of the reference parts from it beyond a
-    tolerance."""
+    tbptt_chunks and chunk_grads on the fit state's cuDNN-layout weights)
+    against the reference's; each variant of the reference parts from it
+    beyond a tolerance."""
     model, weights, stats, train, test, _ = _setup()
     st = _port_state(model, weights, train, test, 1)
     idx = torch.tensor([5, 0, 7, 2])
     obs, act, delta = model._split(train[idx])
     with torch.enable_grad():
-        loss = model.tbptt_loss(st.layers, st.out, st.norm, obs, act, delta)
-        grads = torch.autograd.grad(loss, st.leaves)
-    loss = float(loss.detach())
+        loss, grads, streams = model.tbptt_chunks(
+            st.layers, st.out, st.norm, obs, act, delta, st.leaves)
+    grads = model.chunk_grads(grads, streams, 1.0)
+    loss = float(loss)
     got = ref.named(model._from_step_layout(list(grads)))
     want_loss, want = _reference_loss_grads(weights, stats, obs, act, delta,
                                             variant)

@@ -238,7 +238,10 @@ def test_decode_turns_stamps_into_device_records():
     """A replay's stamps (each marking the span edges of its slot) become
     device records: the step from its first stamp to its last under the
     host span of the replay, each part under the step; every time goes
-    by the call's offset; stamps other than a replay's raise."""
+    by the call's offset. Stamps of streams that ran at once may reach
+    the ring in another order: each slot keeps its own time and the
+    edges their captured order. Stamps other than a replay's, or out of
+    their captured order on one stream, raise."""
     tracing.enable(True)
     with tracing.call('c.call'):
         with tracing.span('c.step'):
@@ -251,6 +254,7 @@ def test_decode_turns_stamps_into_device_records():
         [('close', 'c.b')],
         [('close', 'c.step')]])
     slots = [base, base + 1, base + 2, base + 3]
+    tracing._slot_streams[base + 2] = 7  # c.b closes on another stream
     try:
         tracing.decode([100, 130, 170, 180] * 2, slots * 2,
                        [(slots, host, 1)] * 2, 5)
@@ -262,11 +266,18 @@ def test_decode_turns_stamps_into_device_records():
         assert [r.parent for r in recs[:3]] == [host, step, step]
         dev = tracing.totals()['device']
         assert dev['c.step'] == dict(count=2, total_ns=160, self_ns=20)
+        tracing.decode([100, 170, 130, 180], [slots[i] for i in (0, 2, 1, 3)],
+                       [(slots, host, 1)], 5)
+        assert [(r.name, r.start, r.end) for r in tracing.records()[-3:]] \
+            == [('c.step', 105, 185), ('c.a', 105, 135), ('c.b', 135, 175)]
         with pytest.raises(RuntimeError, match='where a replay writes'):
-            tracing.decode([1, 2, 3, 4], slots[::-1], [(slots, host, 1)],
+            tracing.decode([1, 2, 3, 4], slots[::-1], [(slots, host, 1)], 0)
+        with pytest.raises(RuntimeError, match='where a replay writes'):
+            tracing.decode([1, 2, 3, 4], [slots[0]] * 4, [(slots, host, 1)],
                            0)
     finally:
         del tracing._slots[base:]
+        del tracing._slot_streams[base + 2]
 
 
 def test_a_call_takes_one_offset_at_its_start(monkeypatch):
