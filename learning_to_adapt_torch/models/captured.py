@@ -56,13 +56,15 @@ Spans (utils/tracing.py): a host span around each replay ('fit.train_step',
 'fit.valid_step', 'rollout.step'); with tracing on, a StepGraph captures
 its step's device stamps (the step's begin and end, and the spans inside
 it: 'fit.loss', 'fit.grad', 'fit.optim', the recurrent model's 'rnn.seq';
-'rollout.plan', 'rollout.adapt', 'rollout.env_step'), which fire at every
-replay. The graphs are kept by the tracing state at their capture, so
-stamped copies stand beside the graphs captured with tracing off and
-leave them as they were. Every capture counts 'graph.captures' and
-'graph.capture_s'; every replay of a step that launches the fused MLP
-counts its launches on the warpgroup-MMA kernel in
-'fused_mlp.wgmma_launches' (0 where none), as an eager launch does.
+'rollout.plan', 'rollout.adapt', 'rollout.env_step', the engine's
+'physics.qacc'), which fire at every replay. The graphs are kept by the
+tracing state at their capture, so stamped copies stand beside the graphs
+captured with tracing off and leave them as they were. Every capture
+counts 'graph.captures' and 'graph.capture_s'; every replay of a step that
+launches the fused MLP counts its launches on the warpgroup-MMA kernel in
+'fused_mlp.wgmma_launches' (0 where none), and every replay of a step that
+runs the physics its dynamics passes in 'physics.passes', as an eager
+launch and an eager pass do.
 """
 import gc
 import time
@@ -73,6 +75,7 @@ import torch
 from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
 from learning_to_adapt_torch.ops import clip_adam, fused_mlp, jacobi
 from learning_to_adapt_torch.parallel import mesh as par_mesh
+from learning_to_adapt_torch.physics import engine
 from learning_to_adapt_torch.utils import tracing
 
 WARMUP = 3  # step calls on a side stream before a capture
@@ -219,6 +222,7 @@ class StepGraph:
         self.capture_s = 0.0
         self.collectives = self.warmup_collectives = None
         self.kernels = self.warmup_kernels = None
+        self.passes = 0
 
     @torch.no_grad()
     def capture(self, reset):
@@ -241,6 +245,7 @@ class StepGraph:
         stream.wait_stream(side)
         reset()
         warm = _counts()
+        passes = engine._qacc.passes
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
@@ -258,6 +263,7 @@ class StepGraph:
                 gc.enable()
         torch.cuda.synchronize(self.device)
         after = _counts()
+        self.passes = engine._qacc.passes - passes
         if rng is not None:
             self.generator.set_state(rng)
         (self.warmup_collectives, self.warmup_kernels) = (
@@ -286,6 +292,8 @@ class StepGraph:
         if self.kernels['fused_mlp']:
             tracing.count('fused_mlp.wgmma_launches',
                           self.kernels['fused_mlp_wgmma'])
+        if self.passes:
+            tracing.count('physics.passes', self.passes)
 
 
 class CompiledEpoch:

@@ -22,6 +22,13 @@ row structure of its constraint system, which the JAX engine builds in
 numpy at trace time — is built once per (model, device, dtype) by
 `model_tensors` and cached, so a step does no host-side work beyond issuing
 its tensor operations and never waits for the device.
+
+Each dynamics pass (`_qacc`: smooth dynamics, the constraint solve, the
+Cholesky solve) is the span 'physics.qacc' (utils/tracing.py; stamped on
+the device inside a captured step) and counts one in the counter
+'physics.passes': at its call where it runs eagerly, at every replay of a
+captured step that holds it (models/captured.py StepGraph), as the
+passes the step's capture made (`_qacc.passes` counts every call).
 """
 import weakref
 from dataclasses import dataclass
@@ -35,6 +42,7 @@ from learning_to_adapt_torch.physics import collision as coll
 from learning_to_adapt_torch.physics import maths
 from learning_to_adapt_torch.physics.spec import (
     EULER, FREE, HINGE, RK4, SLIDE, MutableModel, PhysicsModel)
+from learning_to_adapt_torch.utils import tracing
 
 
 #: dynamics passes per physics step by integrator, each with its constraint
@@ -601,14 +609,23 @@ def _qacc(model, mm, state, ctrl, implicit_damping):
     """Generalized acceleration of one dynamics pass: smooth dynamics, the
     constraint solve, and a Cholesky solve with M + h*D (Euler's implicit
     joint damping) or M (RK4)."""
-    mass_mat, qfrc_smooth, aux = smooth_dynamics(model, mm, state, ctrl)
-    qfrc_con = constraint_forces(model, mm, state, mass_mat, qfrc_smooth,
-                                 aux)
-    if implicit_damping:
-        mass_mat = mass_mat + model.timestep * torch.diag_embed(
-            mm.dof_damping)
-    chol, _ = torch.linalg.cholesky_ex(mass_mat)
-    return _cho_solve(chol, (qfrc_smooth + qfrc_con)[..., None])[..., 0]
+    _qacc.passes += 1
+    if not (state.qpos.is_cuda and torch.cuda.is_current_stream_capturing()):
+        # a captured pass counts at each replay (models/captured.py)
+        tracing.count('physics.passes')
+    with tracing.span('physics.qacc'):
+        mass_mat, qfrc_smooth, aux = smooth_dynamics(model, mm, state, ctrl)
+        qfrc_con = constraint_forces(model, mm, state, mass_mat, qfrc_smooth,
+                                     aux)
+        if implicit_damping:
+            mass_mat = mass_mat + model.timestep * torch.diag_embed(
+                mm.dof_damping)
+        chol, _ = torch.linalg.cholesky_ex(mass_mat)
+        return _cho_solve(chol, (qfrc_smooth + qfrc_con)[..., None])[..., 0]
+
+
+#: dynamics passes since the count was last set to 0, captures included
+_qacc.passes = 0
 
 
 def step(model: PhysicsModel, mm: MutableModel, state: PhysicsState,

@@ -43,7 +43,8 @@ W-rank paths are the 1-rank paths.
 
 A step's parts are spans (utils/tracing.py): 'rollout.plan' (with
 'rollout.adapt' inside it once adaptation is on, and 'rollout.pack') and
-'rollout.env_step' (the action noise and the physics). Eagerly they are
+'rollout.env_step' (the action noise and the physics, each of its
+dynamics passes the span 'physics.qacc' inside it). Eagerly they are
 timed by the host; in a CompiledRollout captured with tracing on they are
 the step graph's device stamps, which fire at every replay, and the host
 span 'rollout.step' is around each replay. A call's other phases are

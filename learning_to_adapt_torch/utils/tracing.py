@@ -12,7 +12,8 @@ host's phases and for the parts of the steps that replay as CUDA graphs.
                       tracing on or off (they sit on host events that a
                       replay does not repeat: a graph's capture, a
                       recurrent op's call; 'fused_mlp.wgmma_launches'
-                      counts the launches of each replay, as
+                      and 'physics.passes' count the launches and the
+                      dynamics passes of each replay, as
                       models/captured.py StepGraph adds them), but not in
                       a capture's warm-ups (`quiet`)
     enable(on), enabled(), records(), totals(), counters(), reset()
@@ -34,9 +35,11 @@ stream with nothing launched between them share one stamp (the capture is
 asked for that stream's tail), so each stamp closes one part and opens the
 next: a train step has 4 (its three spans end it; a recurrent model's 2
 more a layer and TBPTT chunk, for 'rnn.seq' inside 'fit.loss'), a
-validation step 2 (the recurrent model's 4), an MB-MPC sampling step 4
-(the copies of the carry follow its last span), a GrBAL one 5 before its
-adaptation gate and 7 after it (its adaptation and pack nest in the plan).
+validation step 2 (the recurrent model's 4), an MB-MPC sampling step 6
+(the copies of the carry follow its last span), a GrBAL one more after its
+adaptation gate (its adaptation and pack nest in the plan); each dynamics
+pass 'physics.qacc' opens and closes on stamps of its own, 2 a step with
+Euler, 8 with the Ant's RK4.
 A call reads the ring at its end in one copy and turns the stamps into
 records of clock 'device': the step itself from its first stamp to its
 last, its parent the host span around the replay, and each span inside
@@ -51,7 +54,8 @@ The spans inside the captured steps: 'fit.loss', 'fit.grad', 'fit.optim'
 (every fit's train step), 'rnn.seq' (models/rnn.py: each call of the
 recurrent layer op, in 'fit.loss' and in the validation step),
 'rollout.plan' (with 'rollout.adapt' and 'rollout.pack' inside) and
-'rollout.env_step'.
+'rollout.env_step' (with 'physics.qacc' inside, physics/engine.py's
+dynamics passes: one a physics step with Euler, four with RK4).
 
 One clock: every start and end is on the clock of the profiler's host
 events, CLOCK_REALTIME (time.time_ns(); the check on the card is in

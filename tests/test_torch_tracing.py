@@ -366,6 +366,85 @@ def test_capture_stamps_each_part_edge_once(monkeypatch):
         del tracing._slots[base:]
 
 
+# ------------------------------------------------------ physics passes
+def _ant_parts(device='cpu'):
+    """GrBAL on the crippled Ant (RK4) at a tiny size."""
+    env = port_envs.normalize(port_envs.AntEnv(
+        task='cripple', reset_every_episode=True, device=device))
+    model = MetaMLPDynamicsModel('d', env, hidden_sizes=(16,),
+                                 meta_batch_size=2, batch_size=4,
+                                 inner_learning_rate=0.01, seed=0,
+                                 device=device)
+    policy = MPCController('p', env, model, n_candidates=8, horizon=2)
+    return env, model, policy
+
+
+@pytest.mark.parametrize('which,passes', [('ant', 4), ('cheetah', 1)])
+def test_physics_qacc_span_and_passes_a_step(which, passes,
+                                             compiled_on_cpu):
+    """Each dynamics pass is a 'physics.qacc' span inside the step's
+    'rollout.env_step' and counts one 'physics.passes': 4 an env step on
+    the RK4 Ant, 1 on the Euler HalfCheetah (frame_skip 1 on both), with
+    tracing on and off alike."""
+    env, model, policy = (_ant_parts() if which == 'ant'
+                          else _parts('grbal')[:3])
+    assert env.frame_skip == 1
+    sampler = Sampler(env, policy, 2, 10, device='cpu', seed=2,
+                      adapt_batch_size=4)
+    before = tracing.counters().get('physics.passes', 0)
+    sampler.obtain_samples(random=False)
+    off = tracing.counters()['physics.passes'] - before
+    assert off == passes * 10 and tracing.records() == []
+    tracing.enable(True)
+    sampler.obtain_samples(random=False)
+    assert tracing.counters()['physics.passes'] - before == 2 * off
+    recs = tracing.records()
+    qacc = [r for r in recs if r.name == 'physics.qacc']
+    assert len(qacc) == passes * 10
+    assert {recs[r.parent].name for r in qacc} == {'rollout.env_step'}
+
+
+def _aten_ops(fn):
+    """The operators fn() runs, in order, but the profiler's range markers
+    (a span's record_function), which run on the host alone."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not str(func).startswith('profiler.'):
+                seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+    with Log():
+        fn()
+    return seen
+
+
+def test_physics_span_adds_no_operator(monkeypatch):
+    """An Ant env step runs the same operators with the engine's span as
+    with a bare context in its place, with tracing off and on: the span
+    launches nothing, so a step captured with tracing off is the graph it
+    was before the span."""
+    from contextlib import nullcontext
+    from learning_to_adapt_torch.physics import engine
+    env, _, _ = _ant_parts()
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    state = env.reset(2, 1, gen)
+    act = torch.rand((2, env.act_dim), generator=gen) * 2 - 1
+
+    def step():
+        return env.step(state, act)
+    off = _aten_ops(step)
+    tracing.enable(True)
+    on = _aten_ops(step)
+    tracing.enable(False)
+    monkeypatch.setattr(engine, 'tracing', SimpleNamespace(
+        span=lambda name: nullcontext(), count=tracing.count))
+    bare = _aten_ops(step)
+    assert off == on == bare and len(bare) > 100
+
+
 # ------------------------------------------------------------- exporter
 def test_record_iteration_writes_the_totals(tmp_path):
     port_log.configure(dir=str(tmp_path), format_strs=[])
@@ -463,8 +542,9 @@ def test_captured_step_stamps_come_back_once_a_replay():
 @pytest.mark.cuda
 def test_stamps_match_the_trace_kernels():
     """One MB-MPC sampling call at its run script's widths, profiled with
-    tracing on: each replay's stamps are the 4 stamp kernels the trace
-    holds for it, in their order. The trace's device times run on a scale
+    tracing on: each replay's stamps are the 6 stamp kernels the trace
+    holds for it, in their order (the step's parts and the physics'
+    dynamics pass inside its env step). The trace's device times run on a scale
     of their own against the host's clock (PERF.md §6), so each stamp is
     held within 10 us of its kernel once that scale is taken out: the line
     through the first and the last stamp kernel's middles. The replays'
@@ -506,10 +586,14 @@ def test_stamps_match_the_trace_kernels():
     assert len(order) == len(steps) == cfg['max_path_length']
     pairs = []          # (stamp on the host clock, its kernel in the trace)
     for corr, i in zip(order, steps):
-        edges = sorted({t for r in recs if r.clock == 'device' and (
-            r.parent == i or r is recs[i]) for t in (r.start, r.end)})
+        inside = {i}    # the step and every device record nested in it
+        for j in range(i + 1, len(recs)):
+            if recs[j].clock == 'device' and recs[j].parent in inside:
+                inside.add(j)
+        edges = sorted({t for j in inside for t in (recs[j].start,
+                                                    recs[j].end)})
         kernels = sorted(stamps[corr])
-        assert len(edges) == len(kernels) == 4
+        assert len(edges) == len(kernels) == 6
         assert all(a[1] <= b[0] for a, b in zip(kernels, kernels[1:]))
         pairs += zip(edges, kernels)
     (t0, (lo0, hi0)), (t1, (lo1, hi1)) = pairs[0], pairs[-1]
@@ -534,3 +618,85 @@ def test_stamps_match_the_trace_kernels():
           f'quarters {quarters} ns); worst host span start {host_worst} ns '
           'from the profiler range')
     assert max(fitted) <= 10_000 and host_worst <= 1_000_000
+
+
+@pytest.mark.cuda
+def test_captured_physics_passes_and_stamps(monkeypatch):
+    """A GrBAL sampling call on the Ant captured on the card (2 envs, 10
+    steps: 6 before the adaptation gate, 4 after): with tracing off each
+    of its two step graphs launches the kernels, in order, that it
+    launches with the engine's span taken out (the graphs of the code
+    before the span); each replay counts 4 'physics.passes'; with tracing
+    on each step holds 4 'physics.qacc' device records inside its
+    'rollout.env_step', and each graph holds 8 stamps more than without
+    the span, an open and a close a pass. A graph's kernels are read as
+    the list most of its replays show: the profiler has been seen to drop
+    activities of a call's last replay (port_bench/lib/trace.py)."""
+    from collections import Counter
+    from contextlib import nullcontext
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from learning_to_adapt_torch.physics import engine
+    dev = _card()
+    steps, gate = 10, 6
+
+    def kernels(patched):
+        """The device activities of each graph (the list most of its
+        replays in a profiled call launch), the passes the call counted,
+        the sampler."""
+        with monkeypatch.context() as m:
+            if patched:
+                m.setattr(engine, 'tracing', SimpleNamespace(
+                    span=lambda name: nullcontext(), count=tracing.count))
+            env, _, policy = _ant_parts(dev)
+            sampler = Sampler(env, policy, 2, steps, device=dev, seed=4,
+                              adapt_batch_size=4)
+            sampler.obtain_samples(random=False)    # captures
+            tracing.reset()
+            torch.cuda.synchronize(dev)
+            before = tracing.counters().get('physics.passes', 0)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                sampler.obtain_samples(random=False)
+                torch.cuda.synchronize(dev)
+            passes = tracing.counters().get('physics.passes', 0) - before
+        launches, device = {}, {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                device.setdefault(e.correlation_id(), []).append(
+                    (e.start_ns(), e.name()))
+            elif e.name().startswith('cudaGraphLaunch'):
+                launches[e.correlation_id()] = e.start_ns()
+        replays = [tuple(n for _, n in sorted(device.get(c, [])))
+                   for c in sorted(launches, key=launches.get)]
+        assert len(replays) == steps
+        graphs = [Counter(part).most_common(1)[0]
+                  for part in (replays[:gate], replays[gate:])]
+        return graphs, passes, sampler
+    off, passes, _ = kernels(False)
+    bare, _, _ = kernels(True)
+    print(f'Ant GrBAL graphs: {[len(k) for k, _ in off]} device activities '
+          f'a replay, the most common list in {[n for _, n in off]} of '
+          f'{gate} and {steps - gate} replays; {passes} physics passes '
+          'counted')
+    assert [k for k, _ in off] == [k for k, _ in bare]
+    assert passes == 4 * steps
+    tracing.enable(True)
+    stamps = {}
+    for patched in (False, True):
+        _, _, sampler = kernels(patched)
+        if not patched:
+            recs = tracing.records()
+        stamps[patched] = {k: len(g.stamps) for k, g in
+                           sampler._rollout_fn(False).graphs.items()}
+    print(f'stamps a step by graph: {stamps[False]}; without the engine\'s '
+          f'span {stamps[True]}')
+    step_recs = [i for i, r in enumerate(recs)
+                 if r.clock == 'device' and r.name == 'rollout.step']
+    qacc = [r for r in recs if r.clock == 'device' and
+            r.name == 'physics.qacc']
+    assert len(stamps[False]) == 2 and {
+        k: n - stamps[True][k] for k, n in stamps[False].items()} == {
+        k: 8 for k in stamps[False]}
+    assert len(step_recs) == steps and len(qacc) == 4 * steps
+    assert {recs[r.parent].name for r in qacc} == {'rollout.env_step'}
