@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (exit code != 0) on failure:
-  1. print the card (nvidia-smi name, power limit); build the three CUDA
-     kernels from learning_to_adapt_torch/csrc with nvcc for sm_90a, and
+  1. print the card (nvidia-smi name, power limit); build the four CUDA
+     kernel sources of learning_to_adapt_torch/csrc with nvcc for sm_90a,
+     and
      the floor variants of the Jacobi kernels' sweep chains
      (jacobi_study.py: the tiers' handshake only, the cluster kernel's two
      paths without row products), in parallel;
@@ -22,7 +23,15 @@ Phases, each of which raises (exit code != 0) on failure:
      at both models' leaf shapes (MB-MPC's and GrBAL's MLPs) over four
      unclipped steps, and timed eagerly and as a replayed CUDA graph (as
      the fits run it) beside the chain timed the same two ways. Every fit
-     on the card must launch it twice a train step (counted_calls);
+     on the card must launch it twice a train step (counted_calls). The
+     smooth-dynamics kernel (both variants: a dynamics pass, the env's
+     forward) is held against the engine's plain tensor code on
+     HalfCheetah (10 and 512 envs) and Ant (5 envs) states after 30
+     random steps, and timed warm, L2-flushed and as a replayed graph,
+     beside the plain code eager and as a graph, the kernels the plain
+     code launches and an empty launch; every sampling call must launch it
+     once a dynamics pass, once a step's forward and once for its reset
+     (physics_launches);
   3. drive the main path: GrBAL adaptive-MPC sampling on HalfCheetah
      (cripple task) at the full width of run_scripts/run_grbal.py — 5 envs,
      500 candidates x horizon 10, a (512,512,512) ReLU meta-MLP, adaptation
@@ -199,6 +208,7 @@ Imports nothing of JAX or of the JAX package. Without a card it exits 2
 before printing any result.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -266,6 +276,10 @@ FIT_CHECK_STEPS = 8
 FIT_PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 FIT_LOSS_RTOL = 1e-5
 JACOBI_TOL = dict(rtol=1e-4, atol=1e-5)  # f32, other summation order
+# the smooth-dynamics kernel against its plain code, largest difference over
+# the largest magnitude: f32, other summation order and fused multiply-adds
+# (tests/test_torch_smooth_kernel.py TOL)
+SMOOTH_TOL = 1e-5
 RENDER_STRIDE = 4                     # the HTML viewer's default stride
 RENDER_ATOL = 1e-5                    # FK at f32, card against the CPU
 
@@ -451,8 +465,8 @@ def build_kernels():
         floors = [pool.submit(jacobi_study.compile_variant, name) for name
                   in (jacobi_study.FLOOR, jacobi_study.SMALL_FLOOR,
                       jacobi_study.DENSE_FLOOR)]
-        paths = list(pool.map(build.build,
-                              ['fused_mlp', 'jacobi', 'clip_adam']))
+        paths = list(pool.map(build.build, ['fused_mlp', 'jacobi',
+                                            'clip_adam', 'smooth_dynamics']))
         floors = [f.result() for f in floors]
     log(f'built {[p.name for p in paths + [f[1] for f in floors]]} in '
         f'{time.time() - t0:.1f} s (parallel nvcc, -gencode '
@@ -826,6 +840,115 @@ def check_jacobi_ant(dev):
                 ant_bound_ms=b_ms, ant_rows=n)
 
 
+def smooth_states(dev, cls_name, n_envs, n_steps=30):
+    """n_envs cripple-task envs of cls_name after n_steps steps of random
+    actions: (env, env state, the last action)."""
+    import torch
+    from learning_to_adapt_torch import envs
+    env = getattr(envs, cls_name)(task='cripple', device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = env.reset(n_envs, episode_idx=1, generator=gen)
+    for _ in range(n_steps):
+        action = 2 * torch.rand((n_envs, env.act_dim), generator=gen,
+                                device=dev) - 1
+        state = env.step(state, action)[0]
+    return env, state, action
+
+
+def smooth_bytes(env, state, ctrl, outs):
+    """The bytes a dynamics pass's launch moves at the least: each input as
+    the kernel reads it (one row where the envs share it, stride 0), the
+    model's table, and each of outs written once, at their element sizes."""
+    from learning_to_adapt_torch.ops import smooth_dynamics as smooth_kernel
+    from learning_to_adapt_torch.physics import engine
+    mm, phys = state.mm, state.phys
+    mt = engine.model_tensors(env.model, phys.qpos.device, phys.qpos.dtype)
+    n_bytes = smooth_kernel.table(env.model, mt).numel()
+    for x in (phys.qpos, phys.qvel, ctrl, mm.body_mass, mm.dof_damping,
+              mm.xfrc_applied):
+        rows = 1 if x.stride(0) == 0 else x.shape[0]
+        n_bytes += rows * x[0].numel() * x.element_size()
+    return n_bytes + sum(x.numel() * x.element_size() for x in outs)
+
+
+def check_smooth_dynamics(dev):
+    """The smooth-dynamics kernel, both variants, against the plain tensor
+    code on the states the main paths reach (HalfCheetah at MB-MPC's 10
+    envs, the Ant at GrBAL's 5, after 30 random steps), largest difference
+    over the largest magnitude of each output within SMOOTH_TOL; timed with
+    CUDA events (warm, L2 flushed, as a replayed graph), by profiler device
+    time, beside the plain code's time eager and as a graph, the kernels
+    the plain code launches, an empty launch's time (`floor_ms`, the floor
+    of any launch: the bound that holds for this latency-bound kernel) and
+    the bytes' bound (`bound_ms`, far below it); HalfCheetah also at 512
+    envs."""
+    import torch
+    from learning_to_adapt_torch.physics import engine
+    out = dict(name='smooth_dynamics', route='cuda',
+               source='csrc/smooth_dynamics.cu',
+               replaces='none: engine.smooth_dynamics and engine.forward '
+                        'tensor code (XLA in the JAX package)')
+    flush = torch.empty(16 * 2 ** 20, device=dev)  # 64 MB > the 50 MB L2
+    out['floor_ms'] = cuda_ms(lambda: torch.cuda._sleep(1))
+    for cls_name, n_envs, key in (('HalfCheetahEnv', MB_ENVS, ''),
+                                  ('AntEnv', N_ENVS, 'ant_'),
+                                  ('HalfCheetahEnv', JACOBI_WIDE_ENVS,
+                                   'wide_')):
+        env, state, ctrl = smooth_states(dev, cls_name, n_envs)
+        args = (env.model, state.mm, state.phys, ctrl)
+        errs = {}
+        got, want = engine.smooth_dynamics(*args), engine._smooth_plain(*args)
+        pairs = [('mass_mat', got[0], want[0]), ('qfrc_smooth', got[1],
+                                                 want[1])]
+        pairs += [(k, got[2][k], want[2][k]) for k in want[2]]
+        fwd, fwd_ref = (engine.forward(*args), engine._forward_plain(*args))
+        pairs += [('fwd.' + f.name, getattr(fwd, f.name),
+                   getattr(fwd_ref, f.name))
+                  for f in dataclasses.fields(fwd_ref)]
+        torch.cuda.synchronize()
+        for name, a, b in pairs:
+            errs[name] = float((a - b).abs().max() /
+                               b.abs().max().clamp(min=1.0))
+        worst = max(errs, key=errs.get)
+        log(f'smooth_dynamics {cls_name} x {n_envs}: worst relative '
+            f'difference {worst} {errs[worst]:.3e} (tolerance {SMOOTH_TOL})'
+            f'; all {json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})}')
+        if not errs[worst] <= SMOOTH_TOL:
+            raise AssertionError(f'smooth_dynamics {cls_name}: {worst} '
+                                 f'{errs[worst]}')
+
+        def kernel():
+            return engine.smooth_dynamics(*args)
+
+        def plain():
+            return engine._smooth_plain(*args)
+        res = dict(max_rel_err=errs[worst], ms=cuda_ms(kernel),
+                   device_ms=device_ms(kernel))
+        if key != 'wide_':
+            forward = (lambda: engine.forward(*args))
+            res.update(
+                ms_cold=cuda_ms(kernel, iters=20, before=flush.zero_),
+                graph_ms=cuda_ms(graphed(kernel, dev)),
+                forward_ms=cuda_ms(forward),
+                forward_device_ms=device_ms(forward),
+                plain_ms=cuda_ms(plain, warmup=2, iters=10),
+                plain_graph_ms=cuda_ms(graphed(plain, dev)),
+                plain_launches=len(profiled(plain, cpu=False).device),
+                forward_plain_launches=len(profiled(
+                    lambda: engine._forward_plain(*args), cpu=False).device))
+            res['bound_ms'], res['bound_by'] = bound_ms(
+                smooth_bytes(env, state, ctrl, [x for name, x, _ in pairs
+                                                if not name.startswith(
+                                                    'fwd.')]), 0, 1.0)
+        out.update({key + k: v for k, v in res.items()})
+        log(f'smooth_dynamics per launch, {cls_name} x {n_envs} (f32): '
+            + json.dumps({k: (float(f'{v:.4g}') if isinstance(v, float)
+                              else v) for k, v in res.items()})
+            + f'; an empty launch (its bound: the kernel is latency-bound)'
+            f' {out["floor_ms"]:.5f} ms')
+    return out
+
+
 def cluster_bound_ms(A, b, live, n_sweeps):
     """The least time of a cluster solve: the larger of one read of A, b,
     aii_inv and omega and one write of f at the card's memory rate, and the
@@ -1036,8 +1159,8 @@ def main_path(dev, card):
     if np.abs(paths['actions']).max() > 1.0:
         raise AssertionError('planner actions outside [-1, 1]')
     want = dict(fused_mlp=HORIZON * PATH_LEN, fused_mlp_wgmma=0,
-                jacobi_solve=solves_per_env_step(env) * PATH_LEN,
-                jacobi_solve_cluster=0, clip_adam=0)
+                jacobi_solve_cluster=0, clip_adam=0,
+                **physics_launches(solves_per_env_step(env), PATH_LEN))
     log(f'policy sampling launches {launches}, expected {want}; weight '
         f'packs {packs}, expected {PATH_LEN}')
     if launches != want:
@@ -1127,9 +1250,10 @@ def zero_counters():
 
 
 #: the kernels' names in a profiler trace
-KERNEL_NAMES = ('fused_mlp_kernel', 'jacobi_kernel', 'jacobi_cluster_kernel')
+KERNEL_NAMES = ('fused_mlp_kernel', 'jacobi_kernel', 'jacobi_cluster_kernel',
+                'smooth_dynamics_kernel')
 NO_LAUNCH = dict(fused_mlp=0, fused_mlp_wgmma=0, pack=0, jacobi_solve=0,
-                 jacobi_solve_cluster=0, clip_adam=0)
+                 jacobi_solve_cluster=0, clip_adam=0, smooth_dynamics=0)
 
 
 def train_replays(model):
@@ -1333,7 +1457,8 @@ def grbal_trainer_phase(dev, card, keep):
         dev, card, run_grbal.ENTRY, cfg, HEADER_CSV,
         ('Pre-Loss', 'Post-Loss'),
         lambda solves: dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN,
-                            pack=PATH_LEN, jacobi_solve=solves * PATH_LEN),
+                            pack=PATH_LEN,
+                            **physics_launches(solves, PATH_LEN)),
         keep)
 
 
@@ -1352,7 +1477,7 @@ def mb_mpc_trainer_phase(dev, card, keep):
         ('TrainLoss', 'ValidLoss'),
         lambda solves: dict(NO_LAUNCH, fused_mlp=MB_HORIZON * t_len,
                             fused_mlp_wgmma=MB_HORIZON * t_len, pack=1,
-                            jacobi_solve=solves * t_len), keep)
+                            **physics_launches(solves, t_len)), keep)
     sampling_profile(trainer.sampler, 'MB-MPC', card)
     return per_itr, total, trainer
 
@@ -1368,7 +1493,8 @@ def rebal_trainer_phase(dev, card, keep):
                max_path_length=PATH_LEN, resume=False, profile=False)
     per_itr, total, trainer = trainer_phase(
         dev, card, run_rebal.ENTRY, cfg, RB_HEADER_CSV, ('TrainLoss',),
-        lambda solves: dict(NO_LAUNCH, jacobi_solve=solves * PATH_LEN), keep)
+        lambda solves: dict(NO_LAUNCH, **physics_launches(solves, PATH_LEN)),
+        keep)
     sampling_profile(trainer.sampler, 'ReBAL', card)
     return per_itr, total, trainer
 
@@ -1452,7 +1578,8 @@ def complete_trace(fn, what, tries=3):
     some, which the profiler has given once in an eager sampling call, is
     run again, up to `tries` times, then the phase fails."""
     names = dict(fused_mlp='fused_mlp_kernel', jacobi_solve='jacobi_kernel',
-                 jacobi_solve_cluster='jacobi_cluster_kernel')
+                 jacobi_solve_cluster='jacobi_cluster_kernel',
+                 smooth_dynamics='smooth_dynamics_kernel')
     for attempt in range(1, tries + 1):
         before = counters()
         trace = profiled(fn)
@@ -1546,6 +1673,15 @@ def solves_per_env_step(env):
     return env.frame_skip * engine.PASSES[env.model.integrator]
 
 
+def physics_launches(solves, t_len, jacobi_key='jacobi_solve'):
+    """The physics' launches in a sampling call of t_len env steps with
+    `solves` dynamics passes a step: a Jacobi launch (of the kernel
+    `jacobi_key`) and a smooth-dynamics launch a pass, a smooth-dynamics
+    launch for each step's forward pass and one for the reset's."""
+    return {jacobi_key: solves * t_len,
+            'smooth_dynamics': (solves + 1) * t_len + 1}
+
+
 def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key,
                   module='run_grbal', n_itr=NEW_ENV_ITR, keep=None):
     """Phase 13, one env: an entry point (run_grbal, or run_mb_mpc) from its
@@ -1599,12 +1735,13 @@ def new_env_phase(dev, card, cls_name, task, header_name, jacobi_key,
             and snap['itr'] == n_itr - 1):
         raise AssertionError(f'{cls_name}: params.pkl did not re-create its '
                              'env')
-    physics = solves_per_env_step(trainer.env.wrapped_env) * PATH_LEN
+    physics = physics_launches(solves_per_env_step(trainer.env.wrapped_env),
+                               PATH_LEN, jacobi_key)
     check_captured(trainer.sampler, f'{module} --env {cls_name}')
     # MB-MPC's 20,000 rows a launch take the warpgroup-MMA kernel
     policy = dict(NO_LAUNCH, fused_mlp=mlp, pack=packs,
                   fused_mlp_wgmma=mlp if module == 'run_mb_mpc' else 0,
-                  **{jacobi_key: physics})
+                  **physics)
     want = {'random': dict(policy, fused_mlp=0, fused_mlp_wgmma=0, pack=0),
             'policy': policy,
             'fit': NO_LAUNCH}
@@ -2136,7 +2273,8 @@ def meta_test_phase(dev, card, snap):
                              f'{results["eval_set"]}')
     grbal_want = dict(
         NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
-        jacobi_solve=solves_per_env_step(AntEnv(device=dev)) * PATH_LEN)
+        **physics_launches(solves_per_env_step(AntEnv(device=dev)),
+                           PATH_LEN))
     # adaptation starts at step a_bs + 2 (rollout.py's gate t > a_bs + 1)
     check_modes('GrBAL Ant leg 3 (held out)', results, record,
                 ('adapted', 'pre-update'), grbal_want,
@@ -2150,9 +2288,10 @@ def meta_test_phase(dev, card, snap):
     t0 = time.time()
     results, record, _ = run_meta_test(snap['rebal'], [], dev)
     modes = ('rebal', 'rebal_hidden_zero', 'rebal_hidden_frozen')
-    cheetah = solves_per_env_step(HalfCheetahEnv(device=dev)) * PATH_LEN
+    cheetah = physics_launches(
+        solves_per_env_step(HalfCheetahEnv(device=dev)), PATH_LEN)
     check_modes('ReBAL', results, record, modes,
-                dict(NO_LAUNCH, jacobi_solve=cheetah), [0, 0, 0])
+                dict(NO_LAUNCH, **cheetah), [0, 0, 0])
     means = [results[m]['mean'] for m in modes]
     if len(set(means)) != 3:
         raise AssertionError(f'ReBAL modes gave equal returns {means}')
@@ -2160,7 +2299,7 @@ def meta_test_phase(dev, card, snap):
     check_modes('MB-MPC', results, record, ('mb_mpc',),
                 dict(NO_LAUNCH, fused_mlp=MB_HORIZON * PATH_LEN,
                      fused_mlp_wgmma=MB_HORIZON * PATH_LEN, pack=1,
-                     jacobi_solve=cheetah), [0])
+                     **cheetah), [0])
     log(f'ReBAL and MB-MPC meta-tests: {time.time() - t0:.1f} s')
 
     # (c) replay, and the trajectory made on the card against the float64
@@ -2254,6 +2393,8 @@ MH_RETURN_RTOL = 2e-3                 # tests/test_multihost.py:95-98
 # batch shapes, so f32 rounding apart (tests/test_torch_parallel.py)
 MH_CANDIDATE_TOL = dict(rtol=1e-5, atol=1e-5)
 MH_PATH_KEYS = ('observations', 'actions', 'rewards', 'next_observations')
+# the counters a rank reports for its policy call
+MH_LAUNCHES = ('fused_mlp', 'pack', 'jacobi_solve', 'smooth_dynamics')
 NO_COLLECTIVE = dict(all_reduce=0, all_gather=0, broadcast=0)
 
 
@@ -2351,9 +2492,10 @@ def multihost_nccl(dev, card):
         with open(HEADER_CSV) as f:
             if header != f.readline():
                 raise AssertionError(f'progress.csv header {header!r}')
+        physics = physics_launches(1, PATH_LEN)
         policy = dict(NO_LAUNCH, fused_mlp=HORIZON * PATH_LEN, pack=PATH_LEN,
-                      jacobi_solve=PATH_LEN)
-        want = {'random': dict(NO_LAUNCH, jacobi_solve=PATH_LEN),
+                      **physics)
+        want = {'random': dict(NO_LAUNCH, **physics),
                 'policy': policy, 'fit': NO_LAUNCH}
         gathered = dict(NO_COLLECTIVE, all_gather=1)
         labels = ['random', 'fit'] + ['policy', 'fit'] * (NEW_ENV_ITR - 1)
@@ -2555,8 +2697,7 @@ def _multihost_rank(out_dir):
         # (T, this rank's envs, candidates)
         out['policy_returns'] = torch.stack(returns).reshape(
             MH_T, MH_ENVS // mesh.world_size, -1).cpu().numpy()
-        out['launches'] = np.array([counters()[k] for k in
-                                    ('fused_mlp', 'pack', 'jacobi_solve')])
+        out['launches'] = np.array([counters()[k] for k in MH_LAUNCHES])
         out['collectives'] = np.array(list(diff(
             par_mesh.collective_counts(), coll).values()))
         for k in MH_PATH_KEYS:
@@ -2598,7 +2739,7 @@ def multihost_gloo(card):
     def leaves(x, prefix):
         return [x[f'{prefix}{i}'] for i in range(sum(
             k.startswith(prefix) for k in x))]
-    want = np.array([HORIZON * MH_T, MH_T, MH_T])
+    want = np.array([HORIZON * MH_T, MH_T, MH_T, 2 * MH_T + 1])
     for r, x in enumerate(runs[2] + runs[1]):
         if not np.array_equal(x['launches'], want):
             raise AssertionError(f'rank {r}: policy call launches '
@@ -2650,9 +2791,8 @@ def multihost_gloo(card):
         log(f'phase 17 (b) policy call: every step within 1e-5, candidate '
             f'returns within {worst:.3g}; reward sums {got:.5f} vs '
             f'{ref:.5f}')
-    return dict(NO_LAUNCH, fused_mlp=int(r0['launches'][0]),
-                pack=int(r0['launches'][1]),
-                jacobi_solve=int(r0['launches'][2]))
+    return dict(NO_LAUNCH, **{k: int(n) for k, n in
+                              zip(MH_LAUNCHES, r0['launches'])})
 
 
 def multihost_phase(dev, card):
@@ -2746,6 +2886,7 @@ def main():
     kernels[0].update(check_fused_mlp_ant(dev))
     kernels[1].update(check_jacobi_ant(dev))
     kernels.append(check_clip_adam(dev))
+    kernels.append(check_smooth_dynamics(dev))
     stamp('kernels')
     launches, sampler = main_path(dev, card)
     sampling_profile(sampler, 'GrBAL', card)
@@ -2847,7 +2988,12 @@ def main():
             'ant_max_abs_err', 'ant_ms', 'ant_ms_cold', 'ant_device_ms',
             'ant_plain_ms', 'ant_bound_ms', 'ant_library_ms',
             'ant_library_device_ms', 'graph_ms', 'plain_graph_ms',
-            'mb_mpc_graph_ms', 'mb_mpc_plain_graph_ms')
+            'mb_mpc_graph_ms', 'mb_mpc_plain_graph_ms', 'max_rel_err',
+            'plain_launches', 'forward_ms', 'forward_device_ms',
+            'forward_plain_launches', 'ant_max_rel_err', 'ant_graph_ms',
+            'ant_plain_graph_ms', 'ant_plain_launches', 'ant_forward_ms',
+            'ant_forward_device_ms', 'ant_forward_plain_launches',
+            'wide_max_rel_err', 'wide_ms', 'wide_device_ms')
     log(f'total {time.time() - t_start:.1f} s')
     log(card_line())
     log(json.dumps({'kernels': [{k: kern.get(k) for k in keys}

@@ -57,9 +57,10 @@ Spans (utils/tracing.py): a host span around each replay ('fit.train_step',
 its step's device stamps (the step's begin and end, and the spans inside
 it: 'fit.loss', 'fit.grad', 'fit.optim', the recurrent model's 'rnn.seq';
 'rollout.plan', 'rollout.adapt', 'rollout.env_step', the engine's
-'physics.qacc'), which fire at every replay. The graphs are kept by the
-tracing state at their capture, so stamped copies stand beside the graphs
-captured with tracing off and leave them as they were. Every capture
+'physics.qacc' and 'physics.smooth'), which fire at every replay. The
+graphs are kept by the tracing state at their capture, so stamped copies
+stand beside the graphs captured with tracing off and leave them as they
+were. Every capture
 counts 'graph.captures' and 'graph.capture_s'; every replay of a step that
 launches the fused MLP counts its launches on the warpgroup-MMA kernel in
 'fused_mlp.wgmma_launches' (0 where none), and every replay of a step that
@@ -73,7 +74,8 @@ from types import SimpleNamespace
 import torch
 
 from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
-from learning_to_adapt_torch.ops import clip_adam, fused_mlp, jacobi
+from learning_to_adapt_torch.ops import (
+    clip_adam, fused_mlp, jacobi, smooth_dynamics)
 from learning_to_adapt_torch.parallel import mesh as par_mesh
 from learning_to_adapt_torch.physics import engine
 from learning_to_adapt_torch.utils import tracing
@@ -166,14 +168,15 @@ def run_epoch(st, steps, steps_valid, train_step, valid_step):
 
 def kernel_counts():
     """The kernel counters of ops/: fused-MLP launches (and those of them on
-    the warpgroup-MMA kernel), weight packs, both Jacobi kernels' launches
-    and the clip-and-Adam kernel's."""
+    the warpgroup-MMA kernel), weight packs, both Jacobi kernels' launches,
+    the clip-and-Adam kernel's and the smooth-dynamics kernel's."""
     return dict(fused_mlp=fused_mlp.fused_mlp_forward.launches,
                 fused_mlp_wgmma=fused_mlp.fused_mlp_forward.wgmma_launches,
                 pack=fused_mlp.pack_weights.calls,
                 jacobi_solve=jacobi.jacobi_solve.launches,
                 jacobi_solve_cluster=jacobi.jacobi_solve_cluster.launches,
-                clip_adam=clip_adam.clip_adam_.launches)
+                clip_adam=clip_adam.clip_adam_.launches,
+                smooth_dynamics=smooth_dynamics.smooth_dynamics.launches)
 
 
 def count_kernels(counts):
@@ -185,6 +188,7 @@ def count_kernels(counts):
     jacobi.jacobi_solve.launches += counts['jacobi_solve']
     jacobi.jacobi_solve_cluster.launches += counts['jacobi_solve_cluster']
     clip_adam.clip_adam_.launches += counts['clip_adam']
+    smooth_dynamics.smooth_dynamics.launches += counts['smooth_dynamics']
 
 
 def _counts():

@@ -16,6 +16,11 @@ Pipeline per step (world-frame Pluecker spatial algebra, about the origin):
   4. soft-constraint assembly (contacts + joint limits) and projected Jacobi
   5. semi-implicit Euler with implicit joint damping, or RK4 (1-4 run four
      times a step)
+Steps 1-2 with the passive, actuator and applied forces (`smooth_dynamics`),
+and the forward pass the envs read (`forward`), are one launch each of the
+kernel of ops/smooth_dynamics.py on CUDA tensors; on CPU tensors they are
+the tensor code `_smooth_plain` and `_forward_plain`, the kernel's plain
+version.
 
 Everything static about a model — its constants as device tensors and the
 row structure of its constraint system, which the JAX engine builds in
@@ -25,7 +30,8 @@ its tensor operations and never waits for the device.
 
 Each dynamics pass (`_qacc`: smooth dynamics, the constraint solve, the
 Cholesky solve) is the span 'physics.qacc' (utils/tracing.py; stamped on
-the device inside a captured step) and counts one in the counter
+the device inside a captured step), its smooth dynamics and each forward
+pass the span 'physics.smooth'; a pass counts one in the counter
 'physics.passes': at its call where it runs eagerly, at every replay of a
 captured step that holds it (models/captured.py StepGraph), as the
 passes the step's capture made (`_qacc.passes` counts every call).
@@ -37,6 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from learning_to_adapt_torch.ops import smooth_dynamics as smooth_kernel
 from learning_to_adapt_torch.ops.jacobi import jacobi_solve
 from learning_to_adapt_torch.physics import collision as coll
 from learning_to_adapt_torch.physics import maths
@@ -134,6 +141,9 @@ class ModelTensors:
                        for kind, qadr, d in self.q_runs]
         # the constraint rows need the compile-time weights, which
         # spec._with_invweights computes with smooth_dynamics alone
+        #: the smooth-dynamics kernel's model table, built at its first
+        #: launch (ops/smooth_dynamics.py table)
+        self.smooth_table = None
         self.nrows = None
         if model.dof_invweight0 is not None:
             self._constraint_structure(model, t, ix)
@@ -412,7 +422,21 @@ def _actuator_force(mt: ModelTensors, n_env, nv, ctrl):
 def smooth_dynamics(model: PhysicsModel, mm: MutableModel, state: PhysicsState,
                     ctrl):
     """Everything except constraints: returns (M (E,nv,nv), qfrc_smooth
-    (E,nv), aux dict)."""
+    (E,nv), aux dict). CUDA tensors take the kernel of
+    ops/smooth_dynamics.py (one launch), CPU tensors the tensor code
+    (`_smooth_plain`); either is the span 'physics.smooth'."""
+    with tracing.span('physics.smooth'):
+        if state.qpos.is_cuda:
+            out = smooth_kernel.smooth_dynamics(
+                model, _mt(model, state.qpos), mm, state.qpos, state.qvel,
+                ctrl)
+            return out.pop('mass_mat'), out.pop('qfrc_smooth'), out
+        return _smooth_plain(model, mm, state, ctrl)
+
+
+def _smooth_plain(model: PhysicsModel, mm: MutableModel, state: PhysicsState,
+                  ctrl):
+    """smooth_dynamics in tensor ops: the kernel's plain version."""
     qpos, qvel = state.qpos, state.qvel
     mt = _mt(model, qpos)
     n_env = qpos.shape[0]
@@ -680,7 +704,20 @@ def forward(model: PhysicsModel, mm: MutableModel,
             state: PhysicsState, ctrl=None) -> ForwardData:
     """Position/velocity-stage forward pass (the `mj_forward` subset envs
     consume for observations and rewards). Omitted ctrl means zero
-    actuator force."""
+    actuator force. CUDA tensors take the kernel of ops/smooth_dynamics.py
+    (one launch), CPU tensors the tensor code (`_forward_plain`); either
+    is the span 'physics.smooth'."""
+    with tracing.span('physics.smooth'):
+        if state.qpos.is_cuda:
+            return ForwardData(**smooth_kernel.smooth_dynamics(
+                model, _mt(model, state.qpos), mm, state.qpos, state.qvel,
+                ctrl, forward=True))
+        return _forward_plain(model, mm, state, ctrl)
+
+
+def _forward_plain(model: PhysicsModel, mm: MutableModel,
+                   state: PhysicsState, ctrl=None) -> ForwardData:
+    """forward in tensor ops: the kernel's plain version."""
     qpos, qvel = state.qpos, state.qvel
     mt = _mt(model, qpos)
     n_env = qpos.shape[0]

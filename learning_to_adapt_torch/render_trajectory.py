@@ -8,9 +8,10 @@ capsule segments from forward kinematics) to a PNG.
     python -m learning_to_adapt_torch.render_trajectory \
         data/grbal_torch/<exp>/replay.npz --env half_cheetah [--device cpu]
 
-Forward kinematics runs once over all kept frames, the frame axis taking
-the place of the env axis. Runs on the card unless --device cpu is given;
-without a card it raises. matplotlib is needed only by main().
+Forward kinematics (engine.forward, one kernel launch on the card) runs
+once over all kept frames, the frame axis taking the place of the env
+axis. Runs on the card unless --device cpu is given; without a card it
+raises. matplotlib is needed only by main().
 """
 import argparse
 
@@ -19,7 +20,7 @@ import torch
 
 from learning_to_adapt_torch.device import resolve_device
 from learning_to_adapt_torch.envs.model_defs import get_model
-from learning_to_adapt_torch.physics import engine, maths, spec
+from learning_to_adapt_torch.physics import engine, spec
 
 
 def render_frames(qpos_seq, model, stride=20, device=None):
@@ -35,8 +36,10 @@ def render_frames(qpos_seq, model, stride=20, device=None):
     mt = engine.model_tensors(model, device, torch.float32)
     mm = spec.batched_mutable(spec.default_mutable(model), len(kept),
                               device, torch.float32)
-    xpos, xquat, _ = engine._fk(model, mt, qpos)
-    gpos, gmat = engine._geom_frames(mt, mm, xpos, maths.quat_to_mat(xquat))
+    # the frames of engine.forward: on the card one launch of its kernel
+    data = engine.forward(model, mm, engine.PhysicsState(
+        qpos=qpos, qvel=qpos.new_zeros((len(kept), model.nv))))
+    gpos, gmat = engine._geom_frames(mt, mm, data.xpos, data.ximat)
     gpos = gpos.cpu().numpy()   # (frames, ngeom, 3)
     gmat = gmat.cpu().numpy()   # (frames, ngeom, 3, 3)
 

@@ -13,6 +13,7 @@ import time
 
 import torch
 
+from learning_to_adapt_torch.models import captured
 from learning_to_adapt_torch.utils import logging as logger, tracing
 
 
@@ -112,9 +113,10 @@ class Trainer:
         keys, the sampler's captured step graphs, on the card the
         allocated, peak and reserved bytes and, with tracing on (--spans),
         the iteration's span totals (utils/tracing.py totals(); the records
-        are cleared after) and the process's counters so far (the graphs
+        are cleared after), the process's counters so far (the graphs
         captured, `graph.captures`, and their seconds: a count that rises
-        after the first iterations is a step captured again). A --resume
+        after the first iterations is a step captured again) and its
+        kernel launches so far (models/captured.py kernel_counts). A --resume
         appends to it, and its process captures anew."""
         log_dir = logger.get_dir()
         if log_dir is None:
@@ -131,6 +133,7 @@ class Trainer:
         if tracing.enabled():
             rec['spans'] = tracing.totals()
             rec['counters'] = tracing.counters()
+            rec['kernels'] = captured.kernel_counts()
             tracing.reset()
         with open(os.path.join(log_dir, 'iterations.jsonl'), 'a') as f:
             f.write(json.dumps(rec) + '\n')

@@ -35,11 +35,14 @@ stream with nothing launched between them share one stamp (the capture is
 asked for that stream's tail), so each stamp closes one part and opens the
 next: a train step has 4 (its three spans end it; a recurrent model's 2
 more a layer and TBPTT chunk, for 'rnn.seq' inside 'fit.loss'), a
-validation step 2 (the recurrent model's 4), an MB-MPC sampling step 6
+validation step 2 (the recurrent model's 4), an MB-MPC sampling step 9
 (the copies of the carry follow its last span), a GrBAL one more after its
-adaptation gate (its adaptation and pack nest in the plan); each dynamics
-pass 'physics.qacc' opens and closes on stamps of its own, 2 a step with
-Euler, 8 with the Ant's RK4.
+adaptation gate (its adaptation and pack nest in the plan). Of those, the
+engine's spans take 5 a step with Euler and 14 with the Ant's RK4: each
+dynamics pass 'physics.qacc' opens and closes on stamps of its own and
+holds a 'physics.smooth' (the smooth-dynamics launch) that opens on the
+pass's open stamp and closes on one of its own, and the step's forward
+pass is a 'physics.smooth' with its own two.
 A call reads the ring at its end in one copy and turns the stamps into
 records of clock 'device': the step itself from its first stamp to its
 last, its parent the host span around the replay, and each span inside
@@ -55,7 +58,9 @@ The spans inside the captured steps: 'fit.loss', 'fit.grad', 'fit.optim'
 recurrent layer op, in 'fit.loss' and in the validation step),
 'rollout.plan' (with 'rollout.adapt' and 'rollout.pack' inside) and
 'rollout.env_step' (with 'physics.qacc' inside, physics/engine.py's
-dynamics passes: one a physics step with Euler, four with RK4).
+dynamics passes: one a physics step with Euler, four with RK4; and
+'physics.smooth', the smooth-dynamics launch, in each pass and around the
+step's forward pass).
 
 One clock: every start and end is on the clock of the profiler's host
 events, CLOCK_REALTIME (time.time_ns(); the check on the card is in

@@ -28,7 +28,8 @@ from learning_to_adapt_torch.models import (
     MetaMLPDynamicsModel, MLPDynamicsModel, Normalizer, RNNDynamicsModel,
     captured)
 from learning_to_adapt_torch.models.optim import tree_leaves, tree_map
-from learning_to_adapt_torch.ops import clip_adam, fused_mlp, jacobi
+from learning_to_adapt_torch.ops import (
+    clip_adam, fused_mlp, jacobi, smooth_dynamics)
 from learning_to_adapt_torch.physics import engine as port_engine
 from learning_to_adapt_torch.physics import spec as port_spec
 from learning_to_adapt_torch.policies import MPCController, RNNMPCController
@@ -383,12 +384,12 @@ def test_kernel_counts_round_trip():
     before = captured.kernel_counts()
     captured.count_kernels(dict(fused_mlp=3, fused_mlp_wgmma=2, pack=1,
                                 jacobi_solve=2, jacobi_solve_cluster=0,
-                                clip_adam=4))
+                                clip_adam=4, smooth_dynamics=5))
     after = captured.kernel_counts()
     captured.count_kernels({k: before[k] - after[k] for k in after})
     assert {k: after[k] - before[k] for k in after} == dict(
         fused_mlp=3, fused_mlp_wgmma=2, pack=1, jacobi_solve=2,
-        jacobi_solve_cluster=0, clip_adam=4)
+        jacobi_solve_cluster=0, clip_adam=4, smooth_dynamics=5)
     assert captured.kernel_counts() == before
 
 
@@ -432,6 +433,7 @@ def test_step_graph_counts_replays(monkeypatch):
         fused_mlp.pack_weights.calls += 1
         jacobi.jacobi_solve.launches += 4
         clip_adam.clip_adam_.launches += clip_adam.LAUNCHES_PER_STEP
+        smooth_dynamics.smooth_dynamics.launches += 5
 
     graph = captured.StepGraph(step, 'cuda', generator=gen)
     state = gen.get_state()
@@ -441,7 +443,7 @@ def test_step_graph_counts_replays(monkeypatch):
     assert gc.isenabled()
     per_step = dict(fused_mlp=10, fused_mlp_wgmma=10, pack=1,
                     jacobi_solve=4, jacobi_solve_cluster=0,
-                    clip_adam=clip_adam.LAUNCHES_PER_STEP)
+                    clip_adam=clip_adam.LAUNCHES_PER_STEP, smooth_dynamics=5)
     traced = tracing.counters().get('fused_mlp.wgmma_launches', 0)
     assert captured.kernel_counts() == before and len(resets) == 4
     assert graph.kernels == per_step
@@ -509,6 +511,8 @@ def test_captured_rollout_matches_eager_on_the_card(algo):
         assert torch.equal(ge, gc) and ce == cc
         assert (re, rc) == (0, t_len)
         assert ce['jacobi_solve'] == t_len
+        # a dynamics pass and the forward pass a step, the reset's forward
+        assert ce['smooth_dynamics'] == 2 * t_len + 1
         if algo == 'grbal':
             assert (ce['fused_mlp'], ce['pack']) == (4 * t_len, t_len)
         if algo == 'mbmpc':

@@ -466,6 +466,7 @@ def test_record_iteration_writes_the_totals(tmp_path):
     assert rows[2]['spans'] == {}
     assert [r['counters']['graph.captures'] for r in rows[1:]] == [
         captures, captures]
+    assert rows[1]['kernels'] == captured.kernel_counts()
     assert tracing.records() == []
 
 
@@ -542,9 +543,10 @@ def test_captured_step_stamps_come_back_once_a_replay():
 @pytest.mark.cuda
 def test_stamps_match_the_trace_kernels():
     """One MB-MPC sampling call at its run script's widths, profiled with
-    tracing on: each replay's stamps are the 6 stamp kernels the trace
-    holds for it, in their order (the step's parts and the physics'
-    dynamics pass inside its env step). The trace's device times run on a scale
+    tracing on: each replay's stamps are the 9 stamp kernels the trace
+    holds for it, in their order (the step's parts, the physics' dynamics
+    pass inside its env step and the smooth-dynamics launches of the pass
+    and of the forward pass). The trace's device times run on a scale
     of their own against the host's clock (PERF.md §6), so each stamp is
     held within 10 us of its kernel once that scale is taken out: the line
     through the first and the last stamp kernel's middles. The replays'
@@ -593,7 +595,7 @@ def test_stamps_match_the_trace_kernels():
         edges = sorted({t for j in inside for t in (recs[j].start,
                                                     recs[j].end)})
         kernels = sorted(stamps[corr])
-        assert len(edges) == len(kernels) == 6
+        assert len(edges) == len(kernels) == 9
         assert all(a[1] <= b[0] for a, b in zip(kernels, kernels[1:]))
         pairs += zip(edges, kernels)
     (t0, (lo0, hi0)), (t1, (lo1, hi1)) = pairs[0], pairs[-1]
@@ -628,10 +630,18 @@ def test_captured_physics_passes_and_stamps(monkeypatch):
     launches with the engine's span taken out (the graphs of the code
     before the span); each replay counts 4 'physics.passes'; with tracing
     on each step holds 4 'physics.qacc' device records inside its
-    'rollout.env_step', and each graph holds 8 stamps more than without
-    the span, an open and a close a pass. A graph's kernels are read as
+    'rollout.env_step', each with a 'physics.smooth' inside, and a fifth
+    'physics.smooth' for the step's forward pass; each graph holds 14
+    stamps more than without the engine's spans: a pass's open (its
+    smooth span opens on the same stamp), its smooth span's close and its
+    close, and the forward's open and close. A graph's kernels are read as
     the list most of its replays show: the profiler has been seen to drop
-    activities of a call's last replay (port_bench/lib/trace.py)."""
+    activities of a call's last replay (port_bench/lib/trace.py). A
+    profiler session is opened and closed before either side is captured:
+    graphs captured before a process's first session have been seen to run
+    a device-to-device copy as CUDA's copy kernel 'memcpy32_post', and
+    graphs captured after it on the copy engine ('Memcpy DtoD'), with the
+    engine's spans and without alike."""
     from collections import Counter
     from contextlib import nullcontext
     from torch.autograd import DeviceType
@@ -673,6 +683,9 @@ def test_captured_physics_passes_and_stamps(monkeypatch):
         graphs = [Counter(part).most_common(1)[0]
                   for part in (replays[:gate], replays[gate:])]
         return graphs, passes, sampler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize(dev)
     off, passes, _ = kernels(False)
     bare, _, _ = kernels(True)
     print(f'Ant GrBAL graphs: {[len(k) for k, _ in off]} device activities '
@@ -697,6 +710,11 @@ def test_captured_physics_passes_and_stamps(monkeypatch):
             r.name == 'physics.qacc']
     assert len(stamps[False]) == 2 and {
         k: n - stamps[True][k] for k, n in stamps[False].items()} == {
-        k: 8 for k in stamps[False]}
+        k: 14 for k in stamps[False]}
     assert len(step_recs) == steps and len(qacc) == 4 * steps
     assert {recs[r.parent].name for r in qacc} == {'rollout.env_step'}
+    smooth = [recs[r.parent].name for r in recs
+              if r.clock == 'device' and r.name == 'physics.smooth']
+    assert sorted(set(smooth)) == ['physics.qacc', 'rollout.env_step']
+    assert smooth.count('physics.qacc') == 4 * steps
+    assert smooth.count('rollout.env_step') == steps
